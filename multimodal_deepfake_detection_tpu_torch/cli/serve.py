@@ -1,0 +1,137 @@
+"""Batch scoring CLI over the port's visual engine.
+
+Counterpart of ``multimodal_deepfake_detection_tpu/cli/serve.py --engine
+visual``: scores every ``.npy`` uint8 frame stack ``(T, H, W, 3)`` under
+``--input`` and writes one JSONL record ``{"path", "score", "fake"}`` per clip.
+
+    python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
+        --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
+
+Flags are the JAX Config's visual fields, with the same names, defaults and
+``--field value`` syntax, plus ``--device``. Video decoding, the other
+engines, AOT artifacts and the device mesh are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import typing
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Config:
+    engine: str = "visual"
+    ckpt_path: str = "Checkpoints/XceptionLSTMV_ArcFace_Best.npz"
+    input: str = "clips"
+    output: Optional[str] = None  # JSONL path; default stdout
+    batch_size: int = 8
+    max_frames: int = 50
+    hidden_dim: int = 128
+    buckets: Tuple[int, ...] = (25, 50, 75)
+    compute_dtype: str = "bfloat16"
+    mask_padding: bool = True
+    threshold: float = 0.5  # "fake" = score > threshold in the JSONL
+    device: str = "cuda"
+
+
+def _parse_value(field_type, raw: str):
+    if field_type in (bool, Optional[bool]):
+        return raw.lower() in ("1", "true", "yes", "on")
+    for t in (int, float, str):
+        if field_type in (t, Optional[t]):
+            return t(raw)
+    inner = (typing.get_args(field_type) or (str,))[0]
+    return tuple(inner(v) for v in raw.split(",") if v)
+
+
+def parse_config(argv=None) -> Config:
+    """``Config()`` with ``--field value`` overrides from ``argv``."""
+    parser = argparse.ArgumentParser(prog="serve")
+    hints = typing.get_type_hints(Config)
+    for f in dataclasses.fields(Config):
+        parser.add_argument(f"--{f.name}", default=None, metavar=str(f.default),
+                            help=f"default: {f.default}")
+    ns = parser.parse_args(argv)
+    overrides = {
+        name: _parse_value(hints[name], raw) for name, raw in vars(ns).items() if raw is not None
+    }
+    return Config(**overrides)
+
+
+def _list_inputs(folder: str) -> List[str]:
+    out = []
+    for dirpath, _dirs, files in sorted(os.walk(folder)):
+        out.extend(os.path.join(dirpath, f) for f in sorted(files) if f.lower().endswith(".npy"))
+    return out
+
+
+def _load_visual_item(path: str, cfg: Config) -> np.ndarray:
+    """-> (T, H, W, 3) uint8; float stacks in [0, 1] are scaled to 0..255."""
+    arr = np.load(path)[: cfg.max_frames]
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8) if arr.max() <= 1.5 else arr.astype(np.uint8)
+    return arr
+
+
+def _pad_stack(items: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero-pad ragged leading dims to the batch max; returns (batch, lengths)."""
+    T = max(a.shape[0] for a in items)
+    out = np.zeros((len(items), T) + items[0].shape[1:], items[0].dtype)
+    lengths = np.zeros((len(items),), np.int32)
+    for i, a in enumerate(items):
+        out[i, : a.shape[0]] = a
+        lengths[i] = a.shape[0]
+    return out, lengths
+
+
+def build_engine(cfg: Config):
+    from ..core.precision import parse_dtype
+    from ..models.serve import VisualScorer
+
+    if cfg.engine != "visual":
+        raise ValueError(f"engine {cfg.engine!r} is not ported; only 'visual' is")
+    return VisualScorer.from_bundle(
+        cfg.ckpt_path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None,
+        mask_padding=cfg.mask_padding, compute_dtype=parse_dtype(cfg.compute_dtype),
+        device=cfg.device,
+    )
+
+
+def main(argv=None, *, log=print) -> int:
+    """Score every clip under ``--input``; returns the number of records written."""
+    cfg = parse_config(argv)
+    engine = build_engine(cfg)
+    paths = _list_inputs(cfg.input)
+    if not paths:
+        raise FileNotFoundError(f"no .npy inputs under {cfg.input}")
+    log(f"[serve] {cfg.engine}: {len(paths)} inputs, batch {cfg.batch_size}, {cfg.device}")
+
+    sink = open(cfg.output, "w") if cfg.output else None
+    emitted = 0
+    try:
+        for i in range(0, len(paths), cfg.batch_size):
+            chunk = paths[i : i + cfg.batch_size]
+            batch, lengths = _pad_stack([_load_visual_item(p, cfg) for p in chunk])
+            scores = engine.score(batch, lengths)
+            for p, s in zip(chunk, scores.tolist()):
+                line = json.dumps({"path": p, "score": round(float(s), 6),
+                                   "fake": bool(s > cfg.threshold)})
+                if sink:
+                    sink.write(line + "\n")
+                else:
+                    log(line)
+                emitted += 1
+    finally:
+        if sink:
+            sink.close()
+    log(f"[serve] scored {emitted} inputs" + (f" -> {cfg.output}" if cfg.output else ""))
+    return emitted
+
+
+if __name__ == "__main__":
+    main()

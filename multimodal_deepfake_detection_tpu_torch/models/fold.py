@@ -1,0 +1,145 @@
+"""Inference-time batch-norm folding for Xception, and the folded forward.
+
+Counterpart of ``multimodal_deepfake_detection_tpu/models/fold.py``. In eval
+mode every BN is an affine map with fixed statistics, so it folds exactly
+into the preceding convolution:
+
+    w' = w * scale/sqrt(var+eps)        (per output channel)
+    b' = bias - mean * scale/sqrt(var+eps)
+
+The folded module stores its conv weights in one compute dtype (the JAX
+package casts them per call to the same values). Every stride-1, no-skip,
+square block that starts with a ReLU — the 8 middle-flow blocks — also keeps
+its weights packed for the K1 kernel (``ops/kernels/middle_block.py``), and
+``use_kernels=True`` routes those blocks through it at any trunk size.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.conv import conv2d, global_avg_pool, linear, max_pool2d
+from ..ops.kernels.middle_block import middle_block, pack_middle_block
+from .xception import Xception
+
+_EPS = 1e-5
+
+
+def _fold(w: torch.Tensor, bn) -> tuple:
+    """OIHW weight + BN -> fp32 (w', b')."""
+    scale_eff = bn.scale.float() * torch.rsqrt(bn.var.float() + _EPS)
+    return w.float() * scale_eff.view(-1, 1, 1, 1), bn.bias.float() - bn.mean.float() * scale_eff
+
+
+def _fold_sep(sep, bn) -> tuple:
+    """SeparableConv + BN -> fp32 (dw, pw', b')."""
+    return (sep.depthwise.detach().float(), *_fold(sep.pointwise.detach(), bn))
+
+
+class FoldedSep(nn.Module):
+    """Depthwise 3x3 + pointwise 1x1 with the folded BN bias."""
+
+    def __init__(self, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
+        super().__init__()
+        self.register_buffer("dw", dw.to(dtype))
+        self.register_buffer("pw", pw.to(dtype))
+        self.register_buffer("b", b.to(dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = conv2d(x, self.dw, padding=1, groups=x.shape[-1])
+        return conv2d(h, self.pw, self.b)
+
+
+class FoldedBlock(nn.Module):
+    def __init__(self, block, dtype: torch.dtype):
+        super().__init__()
+        self.stride = block.stride
+        self.start_with_relu = block.start_with_relu
+        folded = [_fold_sep(u.sep, u.bn) for u in block.units]
+        self.units = nn.ModuleList(FoldedSep(*f, dtype) for f in folded)
+        if block.skip is not None:
+            w, b = _fold(block.skip.conv.detach(), block.skip.bn)
+            self.register_buffer("skip_w", w.to(dtype))
+            self.register_buffer("skip_b", b.to(dtype))
+        else:
+            self.skip_w = self.skip_b = None
+        self.is_middle = is_middle_block(self)
+        if self.is_middle:
+            dw, pw, b = pack_middle_block(folded)
+            self.register_buffer("k1_dw", dw)
+            self.register_buffer("k1_pw", pw)
+            self.register_buffer("k1_b", b)
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+        if use_kernels and self.is_middle:
+            return middle_block(x.contiguous(), self.k1_dw, self.k1_pw, self.k1_b)
+        h = x
+        for i, unit in enumerate(self.units):
+            if i > 0 or self.start_with_relu:
+                h = torch.relu(h)
+            h = unit(h)
+        if self.stride != 1:
+            h = max_pool2d(h, 3, self.stride, 1)
+        if self.skip_w is not None:
+            return h + conv2d(x, self.skip_w, self.skip_b, stride=self.stride)
+        return h + x
+
+
+def is_middle_block(block: FoldedBlock) -> bool:
+    """True for the blocks K1 computes: stride 1, leading ReLU, no projection,
+    every pointwise C -> C."""
+    if block.stride != 1 or not block.start_with_relu or block.skip_w is not None:
+        return False
+    c = block.units[0].pw.shape[0]
+    return all(tuple(u.pw.shape[:2]) == (c, c) for u in block.units)
+
+
+class FoldedXception(nn.Module):
+    """BN-free Xception; ``forward`` mirrors :class:`Xception`'s eval forward."""
+
+    def __init__(self, model: Xception, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        for name, bn in (("conv1", model.bn1), ("conv2", model.bn2)):
+            w, b = _fold(getattr(model, name).detach(), bn)
+            self.register_buffer(f"{name}_w", w.to(dtype))
+            self.register_buffer(f"{name}_b", b.to(dtype))
+        self.blocks = nn.ModuleList(FoldedBlock(blk, dtype) for blk in model.blocks)
+        self.conv3 = FoldedSep(*_fold_sep(model.conv3, model.bn3), dtype)
+        self.conv4 = FoldedSep(*_fold_sep(model.conv4, model.bn4), dtype)
+        if model.fc is not None:
+            self.register_buffer("fc_w", model.fc.w.detach().to(dtype))
+            self.register_buffer("fc_b", model.fc.b.detach().to(dtype))
+        else:
+            self.fc_w = self.fc_b = None
+
+    def forward(self, x: torch.Tensor, *, features_only: bool = False, use_kernels: bool = False,
+                upto: Optional[str] = None) -> torch.Tensor:
+        """NHWC images -> features (or logits). ``use_kernels`` routes the
+        middle blocks through K1; ``upto`` ("stem", "block<k>", "exit")
+        returns that stage's output."""
+        x = x.to(self.dtype)
+        h = torch.relu(conv2d(x, self.conv1_w, self.conv1_b, stride=2))
+        h = torch.relu(conv2d(h, self.conv2_w, self.conv2_b))
+        if upto == "stem":
+            return h
+        for k, block in enumerate(self.blocks):
+            h = block(h, use_kernels)
+            if upto == f"block{k + 1}":
+                return h
+        h = torch.relu(self.conv3(h))
+        h = torch.relu(self.conv4(h))
+        if upto == "exit":
+            return h
+        feats = global_avg_pool(h)
+        if features_only or self.fc_w is None:
+            return feats
+        return linear(feats, self.fc_w, self.fc_b)
+
+
+def fold_xception_bn(model: Xception, dtype: torch.dtype = torch.float32) -> FoldedXception:
+    """Fold a live-BN :class:`Xception` into a BN-free module in ``dtype``."""
+    with torch.no_grad():
+        return FoldedXception(model, dtype)

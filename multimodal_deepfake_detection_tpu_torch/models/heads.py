@@ -1,0 +1,78 @@
+"""XceptionLSTM skeleton and the ArcFace head.
+
+Counterpart of ``multimodal_deepfake_detection_tpu/models/heads.py``. The
+module tree has the JAX param tree's shapes (``xception_lstm_init``:
+backbone, lstm, 4 fc_layers, fc_out) so a JAX bundle merges into it strictly;
+visual serving uses the backbone, the LSTM and ArcFace.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.precision import at_least_f32
+from ..ops.conv import Linear
+from ..ops.lstm import LSTM
+from .xception import Xception
+
+MLP_WIDTH = 1024
+FEATURE_DIM = 2048
+
+
+class XceptionLSTM(nn.Module):
+    """Frozen-feature Xception (no fc) -> LSTM(2048 -> hidden) -> MLP head."""
+
+    def __init__(self, hidden_dim: int, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.backbone = Xception(num_classes=None, generator=g)
+        self.lstm = LSTM(FEATURE_DIM, hidden_dim, g)
+        self.fc_layers = nn.ModuleList([
+            Linear(hidden_dim, MLP_WIDTH, g),
+            Linear(MLP_WIDTH, MLP_WIDTH, g),
+            Linear(MLP_WIDTH, MLP_WIDTH, g),
+            Linear(MLP_WIDTH, MLP_WIDTH, g),
+        ])
+        self.fc_out = Linear(MLP_WIDTH, 1, g)
+
+
+class ArcFace(nn.Module):
+    """Xavier-uniform ``(num_classes, feat_dim)`` class-centre weights."""
+
+    def __init__(self, feat_dim: int, num_classes: int = 2, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        limit = math.sqrt(6.0 / (num_classes + feat_dim))
+        self.w = nn.Parameter(
+            (torch.rand((num_classes, feat_dim), generator=generator) * 2 - 1) * limit
+        )
+
+
+def arcface_apply(
+    w: torch.Tensor,
+    features: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    *,
+    s: float = 30.0,
+    m: float = 0.5,
+) -> torch.Tensor:
+    """Additive angular margin logits, in fp32.
+
+    Without labels: ``s * cos(theta)``. With labels the target class logit is
+    ``s * cos(theta + m)``, theta from acos clipped to ``[-1+1e-7, 1-1e-7]``.
+    """
+    x = at_least_f32(features)
+    w = at_least_f32(w)
+    x = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    w = w / w.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    cos = x @ w.T
+    if labels is None:
+        return s * cos
+    theta = torch.acos(cos.clamp(-1 + 1e-7, 1 - 1e-7))
+    target = torch.cos(theta + m)
+    one_hot = F.one_hot(labels.long(), w.shape[0]).to(cos.dtype)
+    return s * (cos * (1 - one_hot) + target * one_hot)

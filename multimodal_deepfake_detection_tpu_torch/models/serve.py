@@ -1,0 +1,124 @@
+"""Visual serving engine: uint8 clips -> fake probabilities.
+
+Counterpart of ``multimodal_deepfake_detection_tpu/models/serve.py::
+VisualScorer``. One call of :meth:`VisualScorer.score`:
+
+1. uint8 ``(B, T, H, W, 3)`` -> fp32 / 255, optional bilinear resize;
+2. BN-folded Xception over the B*T frames, the 8 middle-flow blocks through
+   the K1 kernel when the tensors are on CUDA (``models/fold.py``);
+3. LSTM over T in the compute dtype, last valid step;
+4. ArcFace cosine logits (s=30) in fp32, softmax fake probability.
+
+Clips are padded (or cut) to a length bucket as the JAX engine does, so the
+scores match it; the JAX meshes, jit cache and quantization modes are not
+ported here.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import load_bundle, merge_params
+from ..data.collate import bucket_length
+from ..ops.lstm import lstm_apply, select_last_step
+from ..ops.resize import resize_bilinear
+from ..utils.jax_weights import (
+    arcface_from_jax,
+    arcface_to_jax,
+    xception_lstm_from_jax,
+    xception_lstm_to_jax,
+)
+from .fold import fold_xception_bn
+from .heads import ArcFace, XceptionLSTM, arcface_apply
+
+
+def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
+    """Read a JAX ``train_visual`` bundle ``{model, arcface[, state]}``.
+
+    ``model`` and ``arcface`` merge strictly onto a freshly initialised tree
+    of the same shapes, so no initial value survives; ``state`` merges
+    leniently (missing BN statistics keep their init, mean 0 and var 1), as
+    the JAX loader does.
+    """
+    g = torch.Generator().manual_seed(0)
+    params, state = xception_lstm_to_jax(XceptionLSTM(hidden_dim, generator=g))
+    arc = arcface_to_jax(ArcFace(hidden_dim, 2, generator=g))
+    bundle = load_bundle(path)
+    params = merge_params(params, bundle["model"], strict=True)
+    arc = merge_params(arc, bundle["arcface"], strict=True)
+    if "state" in bundle:
+        state = merge_params(state, bundle["state"], strict=False)
+    return xception_lstm_from_jax(params, state), arcface_from_jax(arc)
+
+
+class VisualScorer:
+    """XceptionLSTMV + ArcFace scoring on raw uint8 frame stacks."""
+
+    @classmethod
+    def from_bundle(cls, path: str, hidden_dim: int = 128, **kw) -> "VisualScorer":
+        """Build from a ``train_visual`` ``{model, arcface[, state]}`` bundle."""
+        return cls(*load_visual_bundle(path, hidden_dim), **kw)
+
+    def __init__(
+        self,
+        model: XceptionLSTM,
+        arcface: ArcFace,
+        *,
+        arcface_s: float = 30.0,
+        frame_size: Optional[Tuple[int, int]] = None,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        use_kernels: Optional[bool] = None,
+        mask_padding: bool = True,
+        buckets: Optional[Sequence[int]] = None,
+        device="cuda",
+    ):
+        """``use_kernels=None`` runs the middle flow through the K1 kernel
+        exactly when ``device`` is CUDA; ``False`` runs the plain convs
+        (the reference runs compare against this)."""
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.folded_backbone = fold_xception_bn(model.backbone, compute_dtype).to(self.device)
+        self.lstm = copy.deepcopy(model.lstm).to(self.device)
+        self.arcface_w = arcface.w.detach().to(self.device, torch.float32)
+        self.arcface_s = arcface_s
+        self.frame_size = frame_size
+        self.mask_padding = mask_padding
+        self.use_kernels = self.device.type == "cuda" if use_kernels is None else use_kernels
+        # length buckets: T pads up to a bucket, as in the JAX engine
+        self.buckets = tuple(buckets) if buckets else None
+
+    @torch.inference_mode()
+    def frame_features(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """``(B, T, H, W, 3)`` uint8 -> per-frame features ``(B, T, 2048)`` in
+        the compute dtype, on the scorer's device."""
+        B, T = frames_u8.shape[:2]
+        u8 = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        x = u8.reshape((B * T,) + tuple(u8.shape[2:])).float() / 255.0
+        if self.frame_size is not None and tuple(x.shape[1:3]) != tuple(self.frame_size):
+            x = resize_bilinear(x, self.frame_size)
+        feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels)
+        return feats.reshape(B, T, -1)
+
+    @torch.inference_mode()
+    def score(self, frames_u8: np.ndarray, lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """``(B, T, H, W, 3)`` uint8 -> fake probabilities ``(B,)``."""
+        B, T = frames_u8.shape[:2]
+        if lengths is None:
+            lengths = np.full((B,), T, np.int32)
+        if self.buckets:
+            Tb = bucket_length(T, self.buckets)
+            if Tb > T:
+                pad = np.zeros((B, Tb - T) + frames_u8.shape[2:], frames_u8.dtype)
+                frames_u8 = np.concatenate([frames_u8, pad], axis=1)
+            elif Tb < T:  # longer than the largest bucket: truncate
+                frames_u8 = frames_u8[:, :Tb]
+                lengths = np.minimum(lengths, Tb)
+        feats = self.frame_features(frames_u8)
+        outputs, _ = lstm_apply(self.lstm, feats, compute_dtype=self.compute_dtype)
+        lengths_t = torch.as_tensor(np.asarray(lengths), dtype=torch.long, device=self.device)
+        emb = select_last_step(outputs, lengths_t, mask_padding=self.mask_padding)
+        logits = arcface_apply(self.arcface_w, emb, s=self.arcface_s)
+        return torch.softmax(logits, dim=-1)[:, 1].cpu().numpy()

@@ -1,0 +1,64 @@
+"""Build and load the package's CUDA sources (``csrc/``) at first use.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` inside the package
+(listed in ``.gitignore``), then loaded with ``ctypes``. The hash covers every
+source in ``csrc/`` and the flags, so an edited source rebuilds. Nothing here
+falls back: without ``nvcc`` or a CUDA device the loader raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _find_nvcc() -> str:
+    """Path of ``nvcc`` (PATH, then ``$CUDA_HOME/bin``, then /usr/local/cuda)."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built from csrc/ with the CUDA toolkit"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing or stale, then load it."""
+    nvcc = _find_nvcc()
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the CUDA kernels need an NVIDIA GPU")
+    so = BUILD_DIR / f"lib{name}-{_digest()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    return ctypes.CDLL(str(so))

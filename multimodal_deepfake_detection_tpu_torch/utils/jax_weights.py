@@ -1,0 +1,149 @@
+"""Weight bridge: the JAX package's param/state trees <-> the port's modules.
+
+The reverse of ``multimodal_deepfake_detection_tpu/utils/torch_port.py``. Trees
+are nested dicts/lists of numpy arrays, as ``core/checkpoint.py`` bundles hold
+them. Layouts:
+
+* conv HWIO <-> OIHW; depthwise ``(3, 3, 1, C)`` <-> ``(C, 1, 3, 3)``;
+* linear ``(in, out)`` <-> ``(out, in)``;
+* LSTM ``w_ih (in, 4H)`` / ``w_hh (H, 4H)`` stay as they are, gate order
+  ``(i, f, g, o)`` in both;
+* ArcFace ``(classes, feat)`` and BN vectors stay as they are.
+
+Each module is described once, as a walk over its leaves
+``(tree, path, tensor, kind)``; export and import both follow that walk.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from ..models.heads import ArcFace, XceptionLSTM
+from ..models.xception import Xception
+
+_TO_TORCH = {
+    "conv": lambda a: a.transpose(3, 2, 0, 1),
+    "linear": lambda a: a.T,
+    "plain": lambda a: a,
+}
+_TO_JAX = {
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "linear": lambda a: a.T,
+    "plain": lambda a: a,
+}
+
+Leaf = Tuple[str, tuple, torch.Tensor, str]  # (tree "params"|"state", path, tensor, kind)
+
+
+def _bn_leaves(path, bn) -> Iterator[Leaf]:
+    yield "params", path + ("scale",), bn.scale, "plain"
+    yield "params", path + ("bias",), bn.bias, "plain"
+    yield "state", path + ("mean",), bn.mean, "plain"
+    yield "state", path + ("var",), bn.var, "plain"
+
+
+def _sep_leaves(path, sep) -> Iterator[Leaf]:
+    yield "params", path + ("depthwise", "w"), sep.depthwise, "conv"
+    yield "params", path + ("pointwise", "w"), sep.pointwise, "conv"
+
+
+def _linear_leaves(path, lin) -> Iterator[Leaf]:
+    yield "params", path + ("w",), lin.w, "linear"
+    yield "params", path + ("b",), lin.b, "plain"
+
+
+def _xception_leaves(m: Xception, p: tuple = ()) -> Iterator[Leaf]:
+    yield "params", p + ("conv1", "w"), m.conv1, "conv"
+    yield from _bn_leaves(p + ("bn1",), m.bn1)
+    yield "params", p + ("conv2", "w"), m.conv2, "conv"
+    yield from _bn_leaves(p + ("bn2",), m.bn2)
+    for k, blk in enumerate(m.blocks):
+        for i, u in enumerate(blk.units):
+            yield from _sep_leaves(p + ("blocks", k, "units", i, "sep"), u.sep)
+            yield from _bn_leaves(p + ("blocks", k, "units", i, "bn"), u.bn)
+        if blk.skip is not None:
+            yield "params", p + ("blocks", k, "skip", "conv", "w"), blk.skip.conv, "conv"
+            yield from _bn_leaves(p + ("blocks", k, "skip", "bn"), blk.skip.bn)
+    yield from _sep_leaves(p + ("conv3",), m.conv3)
+    yield from _bn_leaves(p + ("bn3",), m.bn3)
+    yield from _sep_leaves(p + ("conv4",), m.conv4)
+    yield from _bn_leaves(p + ("bn4",), m.bn4)
+    if m.fc is not None:
+        yield from _linear_leaves(p + ("fc",), m.fc)
+
+
+def _xception_lstm_leaves(m: XceptionLSTM) -> Iterator[Leaf]:
+    yield from _xception_leaves(m.backbone, ("backbone",))
+    for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        yield "params", ("lstm", name), getattr(m.lstm, name), "plain"
+    for i, lin in enumerate(m.fc_layers):
+        yield from _linear_leaves(("fc_layers", i), lin)
+    yield from _linear_leaves(("fc_out",), m.fc_out)
+
+
+def _arcface_leaves(m: ArcFace) -> Iterator[Leaf]:
+    yield "params", ("w",), m.w, "plain"
+
+
+def _export(leaves) -> Tuple[Dict, Dict]:
+    trees: Dict[str, Dict] = {"params": {}, "state": {}}
+    for tree, path, t, kind in leaves:
+        node = trees[tree]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(_TO_JAX[kind](t.detach().cpu().numpy()))
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(isinstance(k, int) for k in node):
+            return [node[i] for i in range(len(node))]
+        return node
+
+    return listify(trees["params"]), listify(trees["state"])
+
+
+def _import(leaves, params, state) -> None:
+    trees = {"params": params, "state": state}
+    with torch.no_grad():
+        for tree, path, t, kind in leaves:
+            node = trees[tree]
+            for p in path:
+                node = node[p]
+            a = torch.from_numpy(np.array(_TO_TORCH[kind](np.asarray(node))))
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch at {tree}/{'/'.join(map(str, path))}: "
+                                 f"{tuple(a.shape)} vs {tuple(t.shape)}")
+            t.copy_(a)
+
+
+def xception_from_jax(params, state) -> Xception:
+    num_classes = np.shape(params["fc"]["w"])[1] if "fc" in params else None
+    model = Xception(num_classes)
+    _import(_xception_leaves(model), params, state)
+    return model
+
+
+def xception_lstm_to_jax(model: XceptionLSTM) -> Tuple[Dict, Dict]:
+    """-> (params, state) with ``state = {"backbone": ...}``, as ``xception_lstm_init``."""
+    return _export(_xception_lstm_leaves(model))
+
+
+def xception_lstm_from_jax(params, state) -> XceptionLSTM:
+    model = XceptionLSTM(np.shape(params["lstm"]["w_hh"])[0])
+    _import(_xception_lstm_leaves(model), params, state)
+    return model
+
+
+def arcface_to_jax(model: ArcFace) -> Dict:
+    return _export(_arcface_leaves(model))[0]
+
+
+def arcface_from_jax(params) -> ArcFace:
+    num_classes, feat_dim = np.shape(params["w"])
+    model = ArcFace(feat_dim, num_classes)
+    _import(_arcface_leaves(model), params, {})
+    return model

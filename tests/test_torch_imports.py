@@ -1,0 +1,66 @@
+"""The port imports no JAX and nothing of the JAX package, and its kernels
+never fall back silently.
+
+No JAX needed: these run wherever the port runs.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = """
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import multimodal_deepfake_detection_tpu_torch.models.serve
+import multimodal_deepfake_detection_tpu_torch.cli.serve
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_loader_raises_without_nvcc(monkeypatch):
+    """No stub and no fallback: without the CUDA toolkit the loader raises."""
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_library("middle_block")
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """Off the CPU the wrapper launches the kernel or raises. A meta tensor
+    must raise rather than run the plain version."""
+    C = 16
+    x = torch.empty((1, 2, 2, C), device="meta")
+    dw = torch.zeros((3, 9, C))
+    pw = torch.zeros((3, C, C), dtype=torch.bfloat16)
+    b = torch.zeros((3, C))
+    before = middle_block.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        middle_block(x, dw, pw, b)
+    assert middle_block.launches == before
