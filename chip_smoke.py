@@ -3,22 +3,34 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failure raises and exits non-zero:
+Phases, all of them on every run, each printing its lines; any failure
+raises and exits non-zero:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: compile every kernel of the serving path from csrc/ with nvcc;
-3. kernels: K1 (csrc/middle_block.cu) against its plain PyTorch version at
-   the shapes serving gives it, TF32 off;
+2. build: compile every kernel of the serving paths from csrc/ with nvcc,
+   one process per source, all at once: K1 (middle_block.cu), K2
+   (middle_block_w8.cu) and the int8 depthwise (dw_w8a8.cu);
+3. kernels, TF32 off: each kernel against its plain PyTorch version at the
+   shapes serving gives it;
 4. slice: a seeded full-width XceptionLSTMV + ArcFace bundle in the JAX
-   format, a few uint8 clips at 256^2, scored through the port's CLI
-   (``cli/serve.py --engine visual``, bf16 on CUDA); the launch counter must
-   show 8 K1 launches per backbone call, and the scores and per-frame
-   features must agree with the plain fp32 path;
-5. times on the card (CUDA events after warmup): K1 against its plain
-   version, and the slice's frames/s.
+   format and a few uint8 clips at 256^2, scored through the port's CLI
+   (``cli/serve.py --engine visual``, bf16 on CUDA), once on the fp path and
+   once with ``--quantize w8a8-pallas``, each with the launch counters set
+   to 0 just before and read just after: 8 K1 launches per backbone call on
+   the fp path; 8 K2 and 10 int8-depthwise launches, and no K1, on the w8a8
+   path. Then every mode through ``VisualScorer``, counted the same way
+   (w8a8-hybrid: 8 K1 and 10 int8-depthwise launches per backbone call;
+   w8a8: 34 int8-depthwise), against the plain path on the same calibrated
+   tree and against the plain fp32 path; and per mode two controls, wrong
+   trees put in the program's place, which must fail those bars;
+5. times on the card (CUDA events after warmup): each kernel against its
+   plain version and against PyTorch's own calls for the same function, and
+   the slice's frames/s, fp and w8a8, in turns; then the device busy share
+   and the top kernels of one scored batch per path (``torch.profiler``).
 
-The line before the last is the card's ``name, power.limit``; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is the card's ``name, power.limit``; the one before
+that the ``{"kernels": [...]}`` record; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -33,8 +45,21 @@ import numpy as np
 
 BF16_TOL = 1.6e-2  # two bf16 ulps at unit scale
 MEAN_TOL = 1e-3
-FEATURE_COS_MIN = 0.999
+BIT_EQUAL_MIN = 0.999  # int8 kernels: the integer path is exact, 1.0 expected
+FEATURE_COS_MIN = 0.999  # fp kernel path against the plain fp32 path
 SCORE_TOL = 2e-2
+# w8a8 bars (min per-frame feature cos, max score |d|), each between the
+# largest sound reading on an H100 and the reading of its control (PERF.md,
+# "w8a8 on the card"). Kernel path against the plain path on the same tree:
+# sound 1 - cos <= 2.8e-7 and |d| <= 2.9e-4 (the hybrid's bf16 K1; the int8
+# modes are bit-exact), the bf16-fold control 1 - cos >= 4.7e-6.
+QUANT_KERNEL_BARS = (1 - 2e-6, 5e-4)
+# against the plain fp32 path: sound 1 - cos <= 1.47e-6 and |d| <= 1.46e-3,
+# the clipping-calibration control 1 - cos >= 3.3e-5 and |d| >= 2.1e-3
+QUANT_FP32_BARS = (1 - 1e-5, 2e-3)
+PEAK_BF16 = 989e12  # H100 SXM, dense, FLOP/s
+PEAK_INT8 = 1979e12  # OP/s
+PEAK_BYTES = 3.35e12  # B/s
 K1_SHAPES = (  # (N, H=W, C, dtype name, row length of the packed pointwise weight)
     (256, 16, 728, "bfloat16", 736),
     (15, 4, 728, "bfloat16", 736),
@@ -44,8 +69,25 @@ K1_SHAPES = (  # (N, H=W, C, dtype name, row length of the packed pointwise weig
     (15, 4, 728, "float32", 736),
     (4, 8, 40, "bfloat16", 64),
 )
+K2_SHAPES = (  # (N, H=W, C, dtype name); pw_q rows padded to 64 bytes
+    (256, 16, 728, "bfloat16"),
+    (15, 4, 728, "bfloat16"),
+    (3, 2, 728, "bfloat16"),
+    (1, 1, 728, "bfloat16"),
+    (15, 4, 728, "float32"),
+    (4, 8, 40, "bfloat16"),
+)
+DW_SHAPES = (  # (N, H=W, C): the 10 int8 depthwise sites of 256 frames at 256^2, and a 1x1
+    (256, 125, 64), (256, 125, 128),  # block 1
+    (256, 63, 128), (256, 63, 256),  # block 2
+    (256, 32, 256), (256, 32, 728),  # block 3
+    (256, 16, 728), (256, 16, 728),  # block 12
+    (256, 8, 1024), (256, 8, 1536),  # conv3, conv4
+    (15, 1, 1536),  # the exit flow of a 32^2 input
+)
 CLIP_LENGTHS = (8, 5, 3, 8, 5)  # odd count, odd lengths; batch_size 4 -> 2 backbone calls
 BATCH_SIZE = 4
+KERNELS = ("middle_block", "middle_block_w8", "dw_w8a8")
 
 
 def say(msg: str) -> None:
@@ -70,9 +112,27 @@ def phase_build():
     from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load_library("middle_block")
-    say(f"build: middle_block.cu ready in {time.perf_counter() - t0:.2f} s "
-        f"({_build.BUILD_DIR.name}/, nvcc {' '.join(_build.NVCC_FLAGS[:2])})")
+    _build.build(*KERNELS)
+    for name in KERNELS:
+        _build.load_library(name)
+    say(f"build: {', '.join(n + '.cu' for n in KERNELS)} ready in "
+        f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR.name}/, nvcc "
+        f"{' '.join(_build.NVCC_FLAGS[:2])})")
+
+
+def compare(torch, label, got, ref, *, int8=False) -> float:
+    """Bounds: finite; for the int8 kernels >= 99.9 % bit-equal; the rest
+    within two bf16 ulps (relative and absolute); mean |d| <= 1e-3."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    max_d, mean_d = d.max().item(), d.mean().item()
+    equal = (got == ref).float().mean().item()
+    bound_ok = bool((d <= BF16_TOL + BF16_TOL * ref.abs()).all().item())
+    say(f"{label}: max|d|={max_d:.3e} mean|d|={mean_d:.3e} bit-equal={equal:.6f}")
+    if not (bound_ok and mean_d <= MEAN_TOL and torch.isfinite(got).all()
+            and (equal >= BIT_EQUAL_MIN or not int8)):
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version")
+    return max_d
 
 
 def k1_operands(torch, N, H, C, dtype, ldk, seed):
@@ -87,26 +147,75 @@ def k1_operands(torch, N, H, C, dtype, ldk, seed):
     return x, dw, pw.to("cuda", torch.bfloat16), b
 
 
-def phase_kernels(torch) -> float:
+def k2_operands(torch, N, H, C, dtype, seed):
+    """Random K2 operands with per-channel ``s_in`` (the act_scales="channel"
+    form); the int8 pointwise rows' padding past C holds garbage, which the
+    kernel must never read."""
+    g = torch.Generator().manual_seed(seed)
+    reps, ldk = 3, -(-C // 64) * 64
+    x = torch.randn((N, H, H, C), generator=g).to("cuda", getattr(torch, dtype))
+    dw = torch.randn((reps, 9, C), generator=g) * 0.2
+    pw = torch.randn((reps, C, C), generator=g) / C ** 0.5
+    s_w = pw.abs().amax(dim=2) / 127.0
+    pw_q = torch.randint(-128, 128, (reps, C, ldk), generator=g, dtype=torch.int8)
+    pw_q[..., :C] = torch.clamp(torch.round(pw / s_w[..., None]), -127, 127).to(torch.int8)
+    s_dq = torch.full((reps,), 2.5 / 127.0)
+    s_in = s_dq[:, None] * (0.5 + 1.5 * torch.rand((reps, C), generator=g))
+    b = torch.randn((reps, C), generator=g) * 0.1
+    return (x,) + tuple(t.cuda().contiguous() for t in (dw, pw_q, s_w, s_in, s_dq, b))
+
+
+def dw_operands(torch, N, H, C, dtype, seed):
+    """Random int8 depthwise operands: per-channel ``s_in``, ``sc = s_dq * s_w``."""
+    g = torch.Generator().manual_seed(seed)
+    gx = torch.Generator("cuda").manual_seed(seed)  # the largest inputs are made on the card
+    x = torch.randn((N, H, H, C), generator=gx, device="cuda").to(getattr(torch, dtype))
+    w_q = torch.randint(-127, 128, (C, 1, 3, 3), generator=g, dtype=torch.int8)
+    s_in = (2.5 / 127.0) * (0.5 + 1.5 * torch.rand(C, generator=g))
+    sc = 1e-3 * (0.5 + torch.rand(C, generator=g))
+    return x, w_q.cuda(), s_in.cuda(), sc.cuda()
+
+
+def phase_kernels(torch) -> dict:
+    """Every kernel against its plain version; returns the worst max |d| of each."""
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
         middle_block,
         middle_block_ref,
     )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+        middle_block_w8,
+        middle_block_w8_ref,
+    )
 
-    worst = 0.0
+    worst = dict.fromkeys(KERNELS, 0.0)
     for i, (N, H, C, dtype, ldk) in enumerate(K1_SHAPES):
-        x, dw, pw, b = k1_operands(torch, N, H, C, dtype, ldk, seed=i)
-        got = middle_block(x, dw, pw, b).float()
+        ops = k1_operands(torch, N, H, C, dtype, ldk, seed=i)
+        got = middle_block(*ops)
         torch.cuda.synchronize()
-        ref = middle_block_ref(x, dw, pw, b).float()
-        d = (got - ref).abs()
-        max_d, mean_d = d.max().item(), d.mean().item()
-        bound_ok = bool((d <= BF16_TOL + BF16_TOL * ref.abs()).all().item())
-        say(f"K1 ({N},{H},{H},{C}) {dtype} ldk={ldk}: max|d|={max_d:.3e} mean|d|={mean_d:.3e} "
-            f"bit-equal={(got == ref).float().mean().item():.4f}")
-        if not (bound_ok and mean_d <= MEAN_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"K1 disagrees with its plain version at ({N},{H},{H},{C}) {dtype}")
-        worst = max(worst, max_d)
+        worst["middle_block"] = max(worst["middle_block"], compare(
+            torch, f"K1 ({N},{H},{H},{C}) {dtype} ldk={ldk}", got, middle_block_ref(*ops)))
+    for i, (N, H, C, dtype) in enumerate(K2_SHAPES):
+        ops = k2_operands(torch, N, H, C, dtype, seed=100 + i)
+        got = middle_block_w8(*ops)
+        torch.cuda.synchronize()
+        worst["middle_block_w8"] = max(worst["middle_block_w8"], compare(
+            torch, f"K2 ({N},{H},{H},{C}) {dtype}", got, middle_block_w8_ref(*ops), int8=True))
+    for i, (N, H, C) in enumerate(DW_SHAPES):
+        dtype = "float32" if i == len(DW_SHAPES) - 1 else "bfloat16"
+        ops = dw_operands(torch, N, H, C, dtype, seed=200 + i)
+        out_dtype = getattr(torch, dtype)
+        got = dw_w8a8(*ops, out_dtype)
+        torch.cuda.synchronize()
+        worst["dw_w8a8"] = max(worst["dw_w8a8"], compare(
+            torch, f"dw_w8a8 ({N},{H},{H},{C}) {dtype}", got, dw_w8a8_ref(*ops, out_dtype),
+            int8=True))
+    # the scalar s_in of act_scales="tensor" trees
+    x, w_q, s_in, sc = dw_operands(torch, 15, 4, 1536, "bfloat16", seed=300)
+    s_in = s_in[:1].reshape(())
+    worst["dw_w8a8"] = max(worst["dw_w8a8"], compare(
+        torch, "dw_w8a8 (15,4,4,1536) bfloat16, scalar s_in", dw_w8a8(x, w_q, s_in, sc, x.dtype),
+        dw_w8a8_ref(x, w_q, s_in, sc, x.dtype), int8=True))
     return worst
 
 
@@ -134,10 +243,92 @@ def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None
     save_bundle(path, {"model": params, "arcface": arc, "state": state})
 
 
-def phase_slice(torch, workdir: str) -> int:
-    from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
-    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+def counters():
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+        middle_block_w8,
+    )
+
+    return {"middle_block": middle_block, "middle_block_w8": middle_block_w8, "dw_w8a8": dw_w8a8}
+
+
+def counted(torch, label, run, expected: dict):
+    """``run()`` with every launch counter set to 0 just before and read just
+    after; fails unless the counts are ``expected``. Returns ``run()``'s value."""
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    say(f"{label}: launches {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {expected}")
+    return out
+
+
+def per_call(calls: int, k1=0, k2=0, dw=0) -> dict:
+    return {"middle_block": k1 * calls, "middle_block_w8": k2 * calls, "dw_w8a8": dw * calls}
+
+
+def run_cli(torch, workdir, bundle, clip_dir, quantize, expected):
+    """Score the clips through the port's CLI, counting launches; checks the
+    JSONL; returns the scores."""
+    from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
+
+    out = os.path.join(workdir, f"scores_{quantize or 'fp'}.jsonl")
+    argv = ["--engine", "visual", "--ckpt_path", bundle, "--input", clip_dir, "--output", out,
+            "--batch_size", str(BATCH_SIZE), "--compute_dtype", "bfloat16", "--device", "cuda"]
+    argv += ["--quantize", quantize] if quantize else []
+    emitted = counted(torch, f"slice CLI {quantize or 'fp'}",
+                      lambda: cli_serve.main(argv, log=say), expected)
+    recs = [json.loads(line) for line in open(out)]
+    scores = np.array([r["score"] for r in recs], np.float64)
+    if len(recs) != len(CLIP_LENGTHS) or not (np.isfinite(scores).all() and (0 <= scores).all()
+                                              and (scores <= 1).all()):
+        raise AssertionError(f"bad JSONL output ({emitted} clips): {recs}")
+    return scores
+
+
+def outputs(torch, scorer, batches):
+    """``scorer``'s scores and its per-frame features (fp64, valid frames only)."""
+    scores, feats = [], []
+    for batch, lengths in batches:
+        scores.append(scorer.score(batch, lengths))
+        f = scorer.frame_features(batch).double()
+        feats += [f[j, :n] for j, n in enumerate(lengths)]
+    return np.concatenate(scores), torch.cat(feats)
+
+
+def held(torch, label, a, b, bars, *, control: bool = False) -> None:
+    """Min per-frame feature cosine and max score |d| of ``outputs`` ``a``
+    and ``b`` against ``bars = (cos_min, score_tol)``. A control is a wrong
+    quantization put in the program's place: it must fail the bars."""
+    cos = torch.nn.functional.cosine_similarity(a[1], b[1], dim=-1).min().item()
+    score_d = float(np.abs(a[0] - b[0]).max())
+    ok = cos >= bars[0] and score_d <= bars[1]
+    verdict = ("; control: fails, as it must" if not ok else "; control: PASSES") if control else ""
+    say(f"{label}: per-frame feature 1 - cos max {1 - cos:.3e} (<= {1 - bars[0]:.1e}), "
+        f"score max|d| {score_d:.3e} (<= {bars[1]:.1e}); scores "
+        f"{np.round(a[0], 4).tolist()}{verdict}")
+    if ok == control:
+        raise AssertionError(f"{label}: " + ("the control passes the bars" if control
+                                             else "disagreement"))
+
+
+def phase_slice(torch, workdir: str) -> dict:
+    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
+    from multimodal_deepfake_detection_tpu_torch.models.fold import fold_xception_bn
+    from multimodal_deepfake_detection_tpu_torch.models.quant import (
+        QuantizedXception,
+        calibrate_amax,
+        quantize_folded_xception,
+    )
+    from multimodal_deepfake_detection_tpu_torch.models.serve import (
+        VisualScorer,
+        load_visual_bundle,
+    )
 
     bundle = os.path.join(workdir, "visual.npz")
     write_bundle(torch, bundle)
@@ -149,50 +340,57 @@ def phase_slice(torch, workdir: str) -> int:
         clip = rng.integers(0, 256, (t, 256, 256, 3), dtype=np.uint8)
         np.save(os.path.join(clip_dir, f"clip{i}.npy"), clip)
         clips.append(clip)
-    out = os.path.join(workdir, "scores.jsonl")
+    calls = -(-len(clips) // BATCH_SIZE)
+    batches = [_pad_stack(clips[i : i + BATCH_SIZE]) for i in range(0, len(clips), BATCH_SIZE)]
+    kw = dict(device="cuda", buckets=(25, 50, 75))
 
-    middle_block.launches = 0
-    emitted = cli_serve.main(
-        ["--engine", "visual", "--ckpt_path", bundle, "--input", clip_dir, "--output", out,
-         "--batch_size", str(BATCH_SIZE), "--compute_dtype", "bfloat16", "--device", "cuda"],
-        log=say,
-    )
-    torch.cuda.synchronize()
-    launches = middle_block.launches
+    # the main path: the CLI, fp and --quantize w8a8-pallas
+    launches = per_call(calls, k1=8)
+    fp_scores = run_cli(torch, workdir, bundle, clip_dir, None, launches)
+    expected = per_call(calls, k2=8, dw=10)
+    q_scores = run_cli(torch, workdir, bundle, clip_dir, "w8a8-pallas", expected)
+    launches.update(middle_block_w8=expected["middle_block_w8"], dw_w8a8=expected["dw_w8a8"])
 
-    backbone_calls = -(-len(clips) // BATCH_SIZE)
-    say(f"slice: {emitted} clips scored; K1 launches {launches} "
-        f"(expected 8 x {backbone_calls} backbone calls)")
-    if launches != 8 * backbone_calls:
-        raise AssertionError(f"K1 launched {launches} times, expected {8 * backbone_calls}")
-    recs = [json.loads(line) for line in open(out)]
-    scores = np.array([r["score"] for r in recs], np.float64)
-    if len(recs) != len(clips) or not (np.isfinite(scores).all() and (0 <= scores).all()
-                                       and (scores <= 1).all()):
-        raise AssertionError(f"bad JSONL output: {recs}")
-
-    # reference: the plain path (no kernel) in fp32
-    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
-
-    kern = VisualScorer.from_bundle(bundle, device="cuda", buckets=(25, 50, 75))
-    ref = VisualScorer.from_bundle(bundle, device="cuda", buckets=(25, 50, 75),
-                                   compute_dtype=torch.float32, use_kernels=False)
-    ref_scores, cos_min = [], 1.0
-    for i in range(0, len(clips), BATCH_SIZE):
-        batch, lengths = _pad_stack(clips[i : i + BATCH_SIZE])
-        ref_scores.append(ref.score(batch, lengths))
-        fk = kern.frame_features(batch).float()
-        fr = ref.frame_features(batch).float()
-        for j, n in enumerate(lengths):
-            cos = torch.nn.functional.cosine_similarity(fk[j, :n], fr[j, :n], dim=-1)
-            cos_min = min(cos_min, cos.min().item())
-    ref_scores = np.concatenate(ref_scores)
-    score_d = float(np.abs(scores - ref_scores).max())
-    say(f"slice vs plain fp32: per-frame feature cos min {cos_min:.6f} "
-        f"(>= {FEATURE_COS_MIN}), score max|d| {score_d:.3e} (<= {SCORE_TOL}); "
-        f"scores {np.round(scores, 4).tolist()}")
-    if cos_min < FEATURE_COS_MIN or score_d > SCORE_TOL:
-        raise AssertionError("the slice disagrees with the plain fp32 path")
+    # each mode through VisualScorer (score + frame_features: 2 backbone
+    # calls per batch), counted, against the plain fp32 path (no kernel) and
+    # the plain quantized path on the kernel path's calibrated tree
+    ref = outputs(torch, VisualScorer.from_bundle(
+        bundle, compute_dtype=torch.float32, use_kernels=False, **kw), batches)
+    got = counted(torch, "slice fp (VisualScorer)",
+                  lambda: outputs(torch, VisualScorer.from_bundle(bundle, **kw), batches),
+                  per_call(2 * calls, k1=8))
+    held(torch, "slice fp vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
+    if np.abs(got[0] - fp_scores).max() > 1e-4:
+        raise AssertionError("the CLI's fp scores differ from VisualScorer's")
+    bf16_fold = QuantizedXception.from_folded(
+        fold_xception_bn(load_visual_bundle(bundle)[0].backbone, torch.bfloat16)).to("cuda")
+    for mode, per_backbone in (("w8a8-pallas", dict(k2=8, dw=10)),
+                               ("w8a8-hybrid", dict(k1=8, dw=10)),
+                               ("w8a8", dict(dw=34))):
+        kern = VisualScorer.from_bundle(bundle, quantize=mode, **kw)
+        kern.calibrate(batches[0][0])  # the CLI calibrates on its first batch
+        plain = VisualScorer.from_bundle(bundle, quantize=mode, use_kernels=False, **kw)
+        plain.qbackbone = sound = kern.qbackbone
+        got = counted(torch, f"slice {mode} (VisualScorer)", lambda: outputs(torch, kern, batches),
+                      per_call(2 * calls, **per_backbone))
+        plain_out = outputs(torch, plain, batches)
+        held(torch, f"slice {mode} vs plain {mode}", got, plain_out, QUANT_KERNEL_BARS)
+        held(torch, f"slice {mode} vs plain fp32", got, ref, QUANT_FP32_BARS)
+        if mode == "w8a8-pallas" and np.abs(got[0] - q_scores).max() > 1e-4:
+            raise AssertionError("the CLI's w8a8-pallas scores differ from VisualScorer's")
+        # controls on the kernel path: the tree quantized from the bf16 fold
+        # (each weight rounded twice), against the plain path on the sound
+        # tree; and a calibration that clips (every activation scale halved)
+        amaxes = calibrate_amax(kern.fp_tree, kern._frames_to_x(batches[0][0]),
+                                compute_dtype=kern.compute_dtype)
+        quant = dict(quant_depthwise=True, skip_middle=mode == "w8a8-hybrid")
+        kern.qbackbone = quantize_folded_xception(bf16_fold, amaxes, **quant)
+        held(torch, f"control {mode}, bf16 fold, vs plain {mode}", outputs(torch, kern, batches),
+             plain_out, QUANT_KERNEL_BARS, control=True)
+        kern.qbackbone = quantize_folded_xception(kern.fp_tree, amaxes, headroom=0.5, **quant)
+        held(torch, f"control {mode}, clipping calibration, vs plain fp32",
+             outputs(torch, kern, batches), ref, QUANT_FP32_BARS, control=True)
+        kern.qbackbone = sound
     return launches
 
 
@@ -206,48 +404,170 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(torch, fns: dict, iters: int) -> dict:
+    """Mean ms of each callable over passes in turns (a b ... b a)."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_ms(torch, fns[name], iters))
+    return {name: float(np.mean(r)) for name, r in runs.items()}, runs
+
+
+def library_block(torch, x, dw, pw_t, b, *, int8_sc=None):
+    """The middle block through PyTorch's own calls: cuDNN depthwise and
+    cuBLAS 1x1 in the compute dtype (K1's function); with ``int8_sc``, the
+    fp32 cuDNN depthwise on the scaled taps, quantize, and ``torch._int_mm``
+    (K2's function). ``pw_t``: per rep the ``(in, out)`` pointwise matrix."""
+    import torch.nn.functional as F
+
+    N, H, W, C = x.shape
+    h = x
+    for r in range(dw.shape[0]):
+        a = torch.relu(h).permute(0, 3, 1, 2)
+        if int8_sc is None:  # in the compute dtype throughout, as the fold path runs
+            taps = dw[r].t().reshape(C, 1, 3, 3).to(x.dtype)
+            y = F.conv2d(a, taps, padding=1, groups=C).permute(0, 2, 3, 1).reshape(-1, C)
+            o = torch.addmm(b[r].to(x.dtype), y, pw_t[r]).reshape(N, H, W, C)
+        else:
+            taps = dw[r].t().reshape(C, 1, 3, 3)
+            y = F.conv2d(a.to(torch.bfloat16).float(), taps, padding=1, groups=C)
+            q = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+            q = q.permute(0, 2, 3, 1).reshape(-1, C)
+            o = (torch._int_mm(q, pw_t[r]).float() * int8_sc[r] + b[r]).reshape(N, H, W, C)
+        if r + 1 == dw.shape[0]:
+            o = o + x
+        h = o.to(x.dtype)
+    return h
+
+
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def phase_times(torch, smi: str, workdir: str):
+    import torch.nn.functional as F
+
     from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
         middle_block,
         middle_block_ref,
     )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+        _scaled,
+        middle_block_w8,
+        middle_block_w8_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.quant import quantize
 
+    times = {}
     N, H, C = 256, 16, 728  # the middle trunk of 256 frames at 256^2
+    M = N * H * H
     x, dw, pw, b = k1_operands(torch, N, H, C, "bfloat16", 736, seed=99)
-    kernel = lambda: middle_block(x, dw, pw, b)
-    plain = lambda: middle_block_ref(x, dw, pw, b)
-    for fn in (kernel, plain):
-        fn()
-    torch.cuda.synchronize()
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):  # in turns
-        runs[name].append(cuda_ms(torch, kernel if name == "kernel" else plain, 10))
-    k_ms, p_ms = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
-    flop = 3 * 2 * N * H * H * C * C
-    say(f"time K1 ({N},{H},{H},{C}) bf16: kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s "
-        f"on the pointwise), plain {p_ms:.4f} ms; runs {runs} [{smi}]")
+    pw_t = [pw[r, :, :C].contiguous().t() for r in range(3)]
+    ms, runs = in_turns(torch, {
+        "plain": lambda: middle_block_ref(x, dw, pw, b),
+        "kernel": lambda: middle_block(x, dw, pw, b),
+        "library": lambda: library_block(torch, x, dw, pw_t, b),
+    }, 10)
+    ops = 3 * 2 * M * C * C
+    times["middle_block"] = (ms, bound_ms(2 * x.numel() * 2 + pw.numel() * 2, ops, PEAK_BF16))
+    say(f"time K1 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
+        f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
+        f"cuDNN + cuBLAS {ms['library']:.4f} ms; runs {runs} [{smi}]")
+
+    ops_k2 = k2_operands(torch, N, H, C, "bfloat16", seed=98)
+    x2, dw2, pw_q, s_w, s_in, s_dq, b2 = ops_k2
+    taps, sc = _scaled(dw2, s_w, s_in, s_dq)
+    pw_t = [pw_q[r, :, :C].contiguous().t() for r in range(3)]
+    ms, runs = in_turns(torch, {
+        "plain": lambda: middle_block_w8_ref(*ops_k2),
+        "kernel": lambda: middle_block_w8(*ops_k2),
+        "library": lambda: library_block(torch, x2, taps, pw_t, b2, int8_sc=sc),
+    }, 10)
+    times["middle_block_w8"] = (ms, bound_ms(2 * x2.numel() * 2 + 3 * C * C, ops, PEAK_INT8))
+    say(f"time K2 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
+        f"({ops / ms['kernel'] / 1e9:.1f} TOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
+        f"cuDNN + torch._int_mm {ms['library']:.4f} ms; runs {runs} [{smi}]")
+
+    Nd, Hd, Cd = 256, 125, 128  # block 1's second depthwise, the largest site
+    xd, w_q, s_ind, scd = dw_operands(torch, Nd, Hd, Cd, "bfloat16", seed=97)
+    w_f = w_q.float()
+
+    def library_dw():
+        q = quantize(xd, s_ind).float().permute(0, 3, 1, 2)
+        y = F.conv2d(q, w_f, padding=1, groups=Cd).permute(0, 2, 3, 1)
+        return (y * scd).to(torch.bfloat16)
+
+    ms, runs = in_turns(torch, {
+        "plain": lambda: dw_w8a8_ref(xd, w_q, s_ind, scd, torch.bfloat16),
+        "kernel": lambda: dw_w8a8(xd, w_q, s_ind, scd, torch.bfloat16),
+        "library": library_dw,
+    }, 10)
+    nbytes = 2 * xd.numel() * 2 + w_q.numel() + 2 * 4 * Cd
+    times["dw_w8a8"] = (ms, bound_ms(nbytes, 2 * 9 * xd.numel(), PEAK_INT8))
+    say(f"time dw_w8a8 ({Nd},{Hd},{Hd},{Cd}) bf16: kernel {ms['kernel']:.4f} ms "
+        f"({nbytes / ms['kernel'] / 1e6:.1f} GB/s), plain {ms['plain']:.4f} ms, quantize + "
+        f"fp32 cuDNN depthwise {ms['library']:.4f} ms; runs {runs} [{smi}]")
 
     B, T, S = 32, 8, 256
     frames = np.random.default_rng(1).integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
     bundle = os.path.join(workdir, "visual.npz")
-    scorers = {name: VisualScorer.from_bundle(bundle, device="cuda", use_kernels=name == "kernel")
-               for name in ("kernel", "plain")}
-    for sc in scorers.values():
-        sc.score(frames)
-    call_ms = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):  # in turns
+    scorers = {
+        "fp plain": VisualScorer.from_bundle(bundle, device="cuda", use_kernels=False),
+        "fp K1": VisualScorer.from_bundle(bundle, device="cuda"),
+        "w8a8-pallas": VisualScorer.from_bundle(bundle, device="cuda", quantize="w8a8-pallas"),
+    }
+    for sc_ in scorers.values():
+        sc_.score(frames)  # warm-up; calibrates the w8a8 scorer
+    call_ms = {name: [] for name in scorers}
+    for name in list(scorers) + list(scorers)[::-1]:  # in turns
         t0 = time.perf_counter()
         for _ in range(5):
             scorers[name].score(frames)  # returns host scores: synchronised
         call_ms[name].append((time.perf_counter() - t0) / 5 * 1e3)
-    rates = {}
     for name, runs in call_ms.items():
         ms = float(np.mean(runs))
-        rates[name] = B * T / ms * 1e3
-        say(f"time slice B={B} T={T} {S}^2 bf16 {name} middle flow: {ms:.2f} ms/call, "
-            f"{rates[name]:.1f} frames/s; runs {runs} [{smi}]")
-    return k_ms, p_ms, rates
+        say(f"time slice B={B} T={T} {S}^2 bf16 {name}: {ms:.2f} ms/call, "
+            f"{B * T / ms * 1e3:.1f} frames/s; runs {runs} [{smi}]")
+    profile_calls(torch, {k: v for k, v in scorers.items() if k != "fp plain"}, frames, smi)
+    return times
+
+
+def profile_calls(torch, scorers: dict, frames, smi: str, top: int = 15) -> None:
+    """One ``score()`` call of each scorer under ``torch.profiler``: device
+    busy time against the host clock, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, scorer in scorers.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            scorer.score(frames)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        kernels.sort(key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        say(f"profile {name}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms on the host clock "
+            f"(idle share {1 - busy_ms / wall_ms:.3f}) [{smi}]")
+        for e in kernels[:top]:
+            say(f"profile {name}:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+                f"{e.key[:240]}")
+
+
+SOURCES = {
+    "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
+                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80"),
+    "middle_block_w8": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block_w8.cu",
+                        "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:190"),
+    # no TPU kernel: the JAX package's XLA op
+    "dw_w8a8": ("multimodal_deepfake_detection_tpu_torch/csrc/dw_w8a8.cu",
+                "multimodal_deepfake_detection_tpu/ops/quant.py:103"),
+}
 
 
 def main() -> int:
@@ -260,17 +580,20 @@ def main() -> int:
     max_err = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         launches = phase_slice(torch, workdir)
-        k_ms, p_ms, _ = phase_times(torch, smi, workdir)
+        times = phase_times(torch, smi, workdir)
     print(json.dumps({"kernels": [{
-        "name": "middle_block",
+        "name": name,
         "route": "cuda",
-        "source": "multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
-        "replaces": "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1],
+        "launches": launches[name],
+        "max_abs_err": max_err[name],
+        "ms": times[name][0]["kernel"],
+        "plain_ms": times[name][0]["plain"],
+        "bound_ms": times[name][1][0],
+        "bound_by": times[name][1][1],
+        "library_ms": times[name][0]["library"],
+    } for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

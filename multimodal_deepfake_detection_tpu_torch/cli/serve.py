@@ -8,8 +8,10 @@ visual``: scores every ``.npy`` uint8 frame stack ``(T, H, W, 3)`` under
         --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
 
 Flags are the JAX Config's visual fields, with the same names, defaults and
-``--field value`` syntax, plus ``--device``. Video decoding, the other
-engines, AOT artifacts and the device mesh are not ported yet.
+``--field value`` syntax, plus ``--device``. ``--quantize w8a8|w8a8-hybrid|
+w8a8-pallas`` serves the int8 backbone, calibrated on the first batch.
+Video decoding, the other engines, AOT artifacts and the device mesh are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ class Config:
     compute_dtype: str = "bfloat16"
     mask_padding: bool = True
     threshold: float = 0.5  # "fake" = score > threshold in the JSONL
+    # w8a8 int8 backbone ("" = fp): "w8a8", "w8a8-hybrid" (fp middle flow
+    # through K1) or "w8a8-pallas" (int8 middle flow through K2); calibrates
+    # on the first scored batch
+    quantize: str = ""
     device: str = "cuda"
 
 
@@ -98,7 +104,7 @@ def build_engine(cfg: Config):
     return VisualScorer.from_bundle(
         cfg.ckpt_path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None,
         mask_padding=cfg.mask_padding, compute_dtype=parse_dtype(cfg.compute_dtype),
-        device=cfg.device,
+        quantize=cfg.quantize or None, device=cfg.device,
     )
 
 

@@ -9,9 +9,10 @@
 // on NHWC activations (N, H, W, C) in bf16 or fp32.
 //
 // Each rep is two kernels:
-//   dw3x3_relu_kernel — memory-bound: reads the rep input, writes the bf16
-//     depthwise result (the GEMM's A operand) to a scratch buffer; bands of
-//     rows x 64 channels are staged in shared memory with their halo.
+//   dw3x3_relu_kernel (sm90_common.cuh, shared with K2) — memory-bound:
+//     reads the rep input, writes the bf16 depthwise result (the GEMM's A
+//     operand) to a scratch buffer; bands of rows x 64 channels are staged
+//     in shared memory with their halo.
 //   pw_gemm_kernel    — tensor cores through wgmma m64n256k16 (bf16 in, fp32
 //     accumulate) on 128x256x64 tiles in 128-byte-swizzled shared memory,
 //     filled by TMA in a 4-stage mbarrier pipeline; the epilogue adds the
@@ -27,126 +28,11 @@
 // The C interface returns cudaGetLastError() after each launch; the caller
 // owns every buffer and the stream.
 
-#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "sm90_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------------------
-// 8-wide loads (16 bytes of bf16, 32 bytes of fp32)
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// ---------------------------------------------------------------------------
-// (a) ReLU -> bf16 -> depthwise 3x3, fp32 taps, bf16 out. A block owns a band
-// of up to `rows_per_band` output rows of one image and 64 channels: it
-// stages the band plus its one-row, one-column zero halo in shared memory
-// once (ReLU'd and rounded to bf16 as it lands), with the band's 9 x 64 taps,
-// then each thread computes 8 channels (16 bytes) of one output pixel per
-// step. Products and sums are rounded separately (no FMA), in the TPU
-// kernel's dy-major order, so the result is bit-equal to the plain version.
-// ---------------------------------------------------------------------------
-constexpr int DW_CC = 64;  // channels per block
-constexpr int DW_THREADS = 256;
-
-__host__ __device__ constexpr int dw_smem_bytes(int rows, int W) {
-  return (rows + 2) * (W + 2) * DW_CC * 2 + 9 * DW_CC * 4;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(DW_THREADS)
-dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
-                  bf16* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band) {
-  extern __shared__ __align__(16) unsigned char dw_smem[];
-  float* taps_s = reinterpret_cast<float*>(dw_smem);         // [9][DW_CC]
-  bf16* tile = reinterpret_cast<bf16*>(taps_s + 9 * DW_CC);  // [rows+2][W+2][DW_CC]
-
-  const int bands = (H + rows_per_band - 1) / rows_per_band;
-  const int n = blockIdx.x / bands;
-  const int h0 = (blockIdx.x % bands) * rows_per_band;
-  const int rows = min(rows_per_band, H - h0);
-  const int c0 = blockIdx.y * DW_CC;
-  const int vecs = min(DW_CC, C - c0) / 8;  // C % 8 == 0
-  const size_t image = static_cast<size_t>(n) * H * W * C;
-  const int pitch = W + 2;
-
-  for (int i = threadIdx.x; i < 9 * vecs * 8; i += DW_THREADS) {
-    const int k = i / (vecs * 8);
-    const int c = i - k * vecs * 8;
-    taps_s[k * DW_CC + c] = taps[k * C + c0 + c];
-  }
-  for (int i = threadIdx.x; i < (rows + 2) * pitch * vecs; i += DW_THREADS) {
-    const int v = i % vecs;
-    const int p = i / vecs;
-    const int col = p % pitch;
-    const int r = p / pitch;
-    const int hh = h0 - 1 + r;
-    const int ww = col - 1;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-    if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-      float f[8];
-      load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + v * 8, f);
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[e] = __floats2bfloat162_rn(f[2 * e] > 0.f ? f[2 * e] : 0.f,
-                                     f[2 * e + 1] > 0.f ? f[2 * e + 1] : 0.f);
-    }
-    *reinterpret_cast<uint4*>(tile + (r * pitch + col) * DW_CC + v * 8) = packed;
-  }
-  __syncthreads();
-
-  const int v = threadIdx.x % 8;
-  if (v >= vecs) return;
-  for (int p = threadIdx.x / 8; p < rows * W; p += DW_THREADS / 8) {
-    const int r = p / W;
-    const int w = p - r * W;
-    float acc[8];
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        float in[8];
-        load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
-        const float4* tp = reinterpret_cast<const float4*>(taps_s + (dy * 3 + dx) * DW_CC + v * 8);
-        const float4 t0 = tp[0];
-        const float4 t1 = tp[1];
-        const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float prod = __fmul_rn(in[e], t[e]);
-          acc[e] = (dy == 0 && dx == 0) ? prod : __fadd_rn(acc[e], prod);
-        }
-      }
-    uint4 packed;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1]);
-    const size_t pixel = static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w;
-    *reinterpret_cast<uint4*>(a + pixel * ldk + c0 + v * 8) = packed;
-  }
-}
+using namespace mdfd;
 
 // ---------------------------------------------------------------------------
 // (b) out[M, C] = A[M, C] @ Bt[C, C]^T + bias (+ resid), bf16 operands, fp32
@@ -170,60 +56,6 @@ constexpr int GEMM_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int GEMM_SMEM = STAGES * STAGE_BYTES + 1024;  // + room to align to 1024
 constexpr int EPI_J = 4;  // epilogue column groups whose loads go out together
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the phase of parity `phase` to complete. A transfer that never
-// lands traps (a launch failure the caller sees) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
-  for (int spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(phase)
-        : "memory");
-    if (done) return;
-    if (spin > (1 << 22)) __trap();
-  }
-}
-// 2-D tile load {inner, outer} -> shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int inner, int outer,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(inner), "r"(outer)
-      : "memory");
-}
-
-// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart; the tile base is 1024-byte aligned
-__device__ __forceinline__ uint64_t make_desc(const bf16* p) {
-  uint64_t desc = (static_cast<uint64_t>(smem_addr(p)) & 0x3FFFF) >> 4;
-  desc |= static_cast<uint64_t>(16 >> 4) << 16;    // leading byte offset (unused here)
-  desc |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset
-  desc |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
-  return desc;
-}
-
 // D[64 x 256] += A[64 x 16] * B[16 x 256]^T, both operands K-major in shared
 // memory, fp32 accumulators in the warpgroup's registers.
 __device__ __forceinline__ void wgmma_m64n256k16(float d[128], uint64_t desc_a, uint64_t desc_b) {
@@ -237,17 +69,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float d[128], uint64_t desc_a, 
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));  // scale-d = 1: D += A * B
-}
-
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 template <typename T>
@@ -355,36 +176,6 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Tensor map of the first C columns of a row-major [rows][ldk] bf16 matrix,
-// loaded in boxes of 64 columns x box_rows rows with the 128-byte swizzle;
-// out-of-bounds elements read as zero.
-int make_map(CUtensorMap* map, const void* base, int rows, int C, int ldk, int box_rows) {
-  static EncodeTiled encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<EncodeTiled>(fn);
-  }();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldk) * sizeof(bf16)};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <typename T>
 int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* out, bf16* a,
               int N, int H, int W, int C, int ldk, int reps, cudaStream_t stream) {
@@ -394,22 +185,19 @@ int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* ou
   const int M = N * H * W;
   const int gemm_grid = ((M + BM - 1) / BM) * ((C + BN - 1) / BN);
   CUtensorMap map_a;
-  if (int e = make_map(&map_a, a, M, C, ldk, BM)) return e;
-  int rows_per_band = H < 8 ? H : 8;  // keep the staged band within 48 KB where possible
-  while (rows_per_band > 1 && dw_smem_bytes(rows_per_band, W) > 48 * 1024) --rows_per_band;
-  const int dw_smem = dw_smem_bytes(rows_per_band, W);
-  err = cudaFuncSetAttribute(dw3x3_relu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dw_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 dw_grid(N * ((H + rows_per_band - 1) / rows_per_band), (C + DW_CC - 1) / DW_CC);
+  if (int e = make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, C, ldk, BM)) return e;
+  DwLaunch dw_launch;
+  if (int e = dw3x3_setup<T, bf16>(N, H, W, C, &dw_launch)) return e;
   for (int r = 0; r < reps; ++r) {
     const T* src = r == 0 ? x : out;
-    dw3x3_relu_kernel<T><<<dw_grid, DW_THREADS, dw_smem, stream>>>(
-        src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, rows_per_band);
+    dw3x3_relu_kernel<T, bf16><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
+        src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     CUtensorMap map_b;
-    if (int e = make_map(&map_b, pw + static_cast<size_t>(r) * C * ldk, C, C, ldk, BN)) return e;
+    if (int e = make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         pw + static_cast<size_t>(r) * C * ldk, C, C, ldk, BN))
+      return e;
     pw_gemm_kernel<T><<<gemm_grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
         map_a, map_b, b + static_cast<size_t>(r) * C, r + 1 == reps ? x : nullptr, out, M, C);
     err = cudaGetLastError();

@@ -1,0 +1,272 @@
+// Pieces shared by the middle-flow kernels (middle_block.cu, K1, and
+// middle_block_w8.cu, K2) for Hopper, sm_90a:
+//   - 8-wide loads of bf16 / fp32 activations;
+//   - the banded ReLU -> bf16 -> depthwise 3x3 kernel that writes the GEMM's
+//     A operand (bf16 for K1, int8 codes for K2);
+//   - mbarrier, TMA and wgmma shared-memory descriptor helpers, and the
+//     2-D tensor-map encoder.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace mdfd {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// 8-wide loads (16 bytes of bf16, 32 bytes of fp32)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// 8 values -> memory: fp32; bf16 (K1's GEMM operand); or round half to even,
+// clip to +-127 and int8 (K2's GEMM operand, whose taps are already in
+// quantized units)
+__device__ __forceinline__ void store8(float* p, const float acc[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
+__device__ __forceinline__ void store8(bf16* p, const float acc[8]) {
+  uint4 packed;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1]);
+  *reinterpret_cast<uint4*>(p) = packed;
+}
+__device__ __forceinline__ void store8(int8_t* p, const float acc[8]) {
+  uint2 packed;
+  int8_t* o = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    o[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(acc[e]), -127.f), 127.f)));
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+// ---------------------------------------------------------------------------
+// ReLU -> bf16 -> depthwise 3x3, fp32 taps, operand out. A block owns a band
+// of up to `rows_per_band` output rows of one image and 64 channels: it
+// stages the band plus its one-row, one-column zero halo in shared memory
+// once (ReLU'd and rounded to bf16 as it lands), with the band's 9 x 64 taps,
+// then each thread computes 8 channels of one output pixel per step.
+// Products and sums are rounded separately (no FMA), in the TPU kernels'
+// dy-major order, so the result is bit-equal to the plain versions.
+// ---------------------------------------------------------------------------
+constexpr int DW_CC = 64;  // channels per block
+constexpr int DW_THREADS = 256;
+
+__host__ __device__ constexpr int dw_smem_bytes(int rows, int W) {
+  return (rows + 2) * (W + 2) * DW_CC * 2 + 9 * DW_CC * 4;
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(DW_THREADS)
+dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
+                  OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  float* taps_s = reinterpret_cast<float*>(dw_smem);         // [9][DW_CC]
+  bf16* tile = reinterpret_cast<bf16*>(taps_s + 9 * DW_CC);  // [rows+2][W+2][DW_CC]
+
+  const int bands = (H + rows_per_band - 1) / rows_per_band;
+  const int n = blockIdx.x / bands;
+  const int h0 = (blockIdx.x % bands) * rows_per_band;
+  const int rows = min(rows_per_band, H - h0);
+  const int c0 = blockIdx.y * DW_CC;
+  const int vecs = min(DW_CC, C - c0) / 8;  // C % 8 == 0
+  const size_t image = static_cast<size_t>(n) * H * W * C;
+  const int pitch = W + 2;
+
+  for (int i = threadIdx.x; i < 9 * vecs * 8; i += DW_THREADS) {
+    const int k = i / (vecs * 8);
+    const int c = i - k * vecs * 8;
+    taps_s[k * DW_CC + c] = taps[k * C + c0 + c];
+  }
+  for (int i = threadIdx.x; i < (rows + 2) * pitch * vecs; i += DW_THREADS) {
+    const int v = i % vecs;
+    const int p = i / vecs;
+    const int col = p % pitch;
+    const int r = p / pitch;
+    const int hh = h0 - 1 + r;
+    const int ww = col - 1;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
+      float f[8];
+      load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + v * 8, f);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = __floats2bfloat162_rn(f[2 * e] > 0.f ? f[2 * e] : 0.f,
+                                     f[2 * e + 1] > 0.f ? f[2 * e + 1] : 0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + (r * pitch + col) * DW_CC + v * 8) = packed;
+  }
+  __syncthreads();
+
+  const int v = threadIdx.x % 8;
+  if (v >= vecs) return;
+  for (int p = threadIdx.x / 8; p < rows * W; p += DW_THREADS / 8) {
+    const int r = p / W;
+    const int w = p - r * W;
+    float acc[8];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float in[8];
+        load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
+        const float4* tp = reinterpret_cast<const float4*>(taps_s + (dy * 3 + dx) * DW_CC + v * 8);
+        const float4 t0 = tp[0];
+        const float4 t1 = tp[1];
+        const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float prod = __fmul_rn(in[e], t[e]);
+          acc[e] = (dy == 0 && dx == 0) ? prod : __fadd_rn(acc[e], prod);
+        }
+      }
+    const size_t pixel = static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w;
+    store8(a + pixel * ldk + c0 + v * 8, acc);
+  }
+}
+
+// Launch geometry of dw3x3_relu_kernel for one (N, H, W, C): bands of up to 8
+// rows, fewer where the staged band would outgrow 48 KB.
+struct DwLaunch {
+  dim3 grid;
+  int smem;
+  int rows_per_band;
+};
+
+template <typename T, typename OutT>
+int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
+  int rows = H < 8 ? H : 8;
+  while (rows > 1 && dw_smem_bytes(rows, W) > 48 * 1024) --rows;
+  l->rows_per_band = rows;
+  l->smem = dw_smem_bytes(rows, W);
+  l->grid = dim3(N * ((H + rows - 1) / rows), (C + DW_CC - 1) / DW_CC);
+  return static_cast<int>(cudaFuncSetAttribute(
+      dw3x3_relu_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, l->smem));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA and wgmma descriptors
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `phase` to complete. A transfer that never
+// lands traps (a launch failure the caller sees) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  for (int spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (spin > (1 << 22)) __trap();
+  }
+}
+// 2-D tile load {inner, outer} -> shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int inner, int outer,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart; the tile base is 1024-byte aligned
+__device__ __forceinline__ uint64_t make_desc(const void* p) {
+  uint64_t desc = (static_cast<uint64_t>(smem_addr(p)) & 0x3FFFF) >> 4;
+  desc |= static_cast<uint64_t>(16 >> 4) << 16;    // leading byte offset (unused here)
+  desc |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset
+  desc |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
+  return desc;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Tensor map of the first C columns of a row-major [rows][ldk] matrix of
+// `elem_bytes`-byte elements, loaded in boxes of 128 bytes x box_rows rows
+// with the 128-byte swizzle; out-of-bounds elements read as zero.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes, const void* base,
+                    int rows, int C, int ldk, int box_rows) {
+  static EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldk) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Epilogue I/O: two neighbouring channels of the residual and the output
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+}  // namespace mdfd

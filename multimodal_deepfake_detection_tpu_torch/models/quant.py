@@ -1,0 +1,354 @@
+"""w8a8 post-training-quantized Xception serving forward.
+
+Counterpart of the Xception half of ``multimodal_deepfake_detection_tpu/
+models/quant.py``. The BN-folded network is held as a tree of conv sites
+(:class:`QuantizedXception`), each site fp (``w [, b]``) or int8 (``w_q``,
+``s_w``, ``s_in`` [, ``s_dq``] [, ``b``]). Every regular and pointwise conv
+of a quantized tree runs as an int8 GEMM with per-output-channel weight
+scales and a static activation scale calibrated offline; with
+``quant_depthwise`` the depthwise 3x3s are int8 too; the fc head stays fp.
+
+One structural walk, :func:`xception_quant_walk`, serves every mode, so the
+calibration pass, the fp pass and the quantized pass cannot drift apart:
+
+* ``observe=True``: the fp forward that also returns each site's input
+  amax per channel;
+* ``quant=False``: the plain fp folded forward (equals
+  ``FoldedXception.forward``, pinned by a test);
+* ``quant=True``: the w8a8 forward over a tree from
+  :func:`quantize_folded_xception`.
+
+``fuse_middle`` (the JAX walk's ``middle_pallas``) runs each middle-flow
+block as one fused block: K2 (``ops/kernels/middle_block_w8.py``) on int8
+blocks, K1 (``ops/kernels/middle_block.py``) on fp ones, as a
+``skip_middle`` tree has them. ``use_kernels`` sends those blocks and the
+int8 depthwise through the kernel wrappers (the kernels on CUDA, their plain
+versions on the CPU); ``use_kernels=False`` takes the plain versions on any
+device. The JAX walk's W >= 4 gate on its fused kernels works around a TPU
+fault and is not ported: K1 and K2 are exact at any trunk size.
+
+The walk's ``tap``/``shadow`` hooks, the affine refinement and the ResNet-18
+half are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.conv import conv2d, global_avg_pool, linear, max_pool2d
+from ..ops.kernels.middle_block import middle_block, middle_block_ref, pack_middle_block
+from ..ops.kernels.middle_block_w8 import (
+    is_middle_block_q,
+    middle_block_w8,
+    middle_block_w8_ref,
+    pack_middle_block_q,
+)
+from ..ops.quant import conv2d_w8a8, depthwise_conv2d_w8a8, quantize_weight
+from .fold import FoldedXception
+from .xception import XCEPTION_BLOCK_SPECS
+
+NODE_KEYS = ("w", "b", "w_q", "s_w", "s_in", "s_dq")
+
+
+class ConvNode(nn.Module):
+    """One conv site: fp (``w`` OIHW [, ``b``]) or int8 (``w_q`` int8 OIHW,
+    ``s_w (O,)``, ``s_in`` scalar or ``(Ci,)`` [, ``s_dq`` scalar] [, ``b``]),
+    all as buffers; absent ones are None."""
+
+    def __init__(self, **tensors: Optional[torch.Tensor]):
+        super().__init__()
+        unknown = set(tensors) - set(NODE_KEYS)
+        if unknown:
+            raise ValueError(f"unknown conv-node fields {sorted(unknown)}")
+        for k in NODE_KEYS:
+            self.register_buffer(k, tensors.get(k))
+
+    @property
+    def quantized(self) -> bool:
+        return self.w_q is not None
+
+    def fields(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in NODE_KEYS if getattr(self, k) is not None}
+
+
+class SepNode(nn.Module):
+    """A separable conv site: depthwise 3x3 then pointwise 1x1."""
+
+    def __init__(self, depthwise: ConvNode, pointwise: ConvNode):
+        super().__init__()
+        self.depthwise = depthwise
+        self.pointwise = pointwise
+
+
+class QuantBlock(nn.Module):
+    """One Xception block of the tree. A middle-flow block (stride 1,
+    leading ReLU, no projection, square pointwise) also keeps its weights
+    packed for its fused kernel: K1's operands when its nodes are fp, K2's
+    when its pointwise is int8."""
+
+    def __init__(self, spec, units, skip: Optional[ConvNode]):
+        super().__init__()
+        _in, _out, _reps, self.stride, self.start_with_relu, _grow = spec
+        self.units = nn.ModuleList(units)
+        self.skip = skip
+        square = all(
+            tuple((u.pointwise.w_q if u.pointwise.quantized else u.pointwise.w).shape[:2])
+            == (_out, _out) for u in units
+        )
+        middle = self.stride == 1 and self.start_with_relu and skip is None and square
+        self.k1 = middle and not any(u.pointwise.quantized or u.depthwise.quantized for u in units)
+        self.k2 = middle and is_middle_block_q(self)
+        packed = ()
+        if self.k1:
+            packed = pack_middle_block([(u.depthwise.w, u.pointwise.w, u.pointwise.b) for u in units])
+        elif self.k2:
+            packed = pack_middle_block_q(units)
+        self.n_packed = len(packed)
+        for i, t in enumerate(packed):
+            self.register_buffer(f"packed_{i}", t)
+
+    def packed_operands(self) -> tuple:
+        """The fused kernel's operands, as ``pack_middle_block(_q)`` returned them."""
+        return tuple(getattr(self, f"packed_{i}") for i in range(self.n_packed))
+
+
+class QuantizedXception(nn.Module):
+    """The Xception tree of conv sites that :func:`xception_quant_walk`
+    runs. Built by :meth:`from_folded` with every site fp (the fp32 folded
+    weights that calibration and the quantizer read), or by
+    :func:`quantize_folded_xception` with int8 sites. ``fc_w (out, in)``,
+    ``fc_b`` stay fp (None without an fc head)."""
+
+    def __init__(self, conv1, conv2, blocks, conv3, conv4, fc_w=None, fc_b=None):
+        super().__init__()
+        self.conv1, self.conv2 = conv1, conv2
+        self.blocks = nn.ModuleList(blocks)
+        self.conv3, self.conv4 = conv3, conv4
+        self.register_buffer("fc_w", fc_w)
+        self.register_buffer("fc_b", fc_b)
+
+    @classmethod
+    def from_folded(cls, folded: FoldedXception) -> "QuantizedXception":
+        """The all-fp tree of a folded module (fold it in fp32 for the quantizer)."""
+        def sep(s):
+            return SepNode(ConvNode(w=s.dw), ConvNode(w=s.pw, b=s.b))
+
+        blocks = []
+        for spec, fb in zip(XCEPTION_BLOCK_SPECS, folded.blocks):
+            skip = None if fb.skip_w is None else ConvNode(w=fb.skip_w, b=fb.skip_b)
+            blocks.append(QuantBlock(spec, [sep(u) for u in fb.units], skip))
+        return cls(ConvNode(w=folded.conv1_w, b=folded.conv1_b),
+                   ConvNode(w=folded.conv2_w, b=folded.conv2_b), blocks,
+                   sep(folded.conv3), sep(folded.conv4), folded.fc_w, folded.fc_b)
+
+
+def _sites(tree: QuantizedXception, *, depthwise: bool = False) -> Iterator[str]:
+    """Walk-order keys of every conv site (13 blocks' units and skips, the
+    stem, the two exit sepconvs)."""
+    yield "conv1"
+    yield "conv2"
+    for k, blk in enumerate(tree.blocks):
+        for i in range(len(blk.units)):
+            if depthwise:
+                yield f"blocks/{k}/units/{i}/depthwise"
+            yield f"blocks/{k}/units/{i}/pointwise"
+        if blk.skip is not None:
+            yield f"blocks/{k}/skip"
+    for site in ("conv3", "conv4"):
+        if depthwise:
+            yield f"{site}/depthwise"
+        yield f"{site}/pointwise"
+
+
+def _resolve_site(tree: nn.Module, site: str) -> nn.Module:
+    """Walk-order site key ('blocks/3/units/1/pointwise', 'conv1', ...) -> node."""
+    node = tree
+    for part in site.split("/"):
+        node = node[int(part)] if part.isdigit() else getattr(node, part)
+    return node
+
+
+def xception_quant_walk(
+    tree: QuantizedXception,
+    x: torch.Tensor,
+    *,
+    quant: bool = False,
+    observe: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    features_only: bool = False,
+    fuse_middle: bool = False,
+    use_kernels: bool = True,
+    upto: Optional[str] = None,
+):
+    """The shared structural forward on NHWC images (modes: module
+    docstring). ``upto`` ("stem", "block<k>", "exit") returns that stage's
+    output, as ``FoldedXception.forward`` does. With ``observe`` returns
+    ``(out, {site: fp32 (Ci,) amax})``."""
+    obs = {} if observe else None
+
+    def amax(site, h):
+        if obs is not None:
+            obs[site] = h.float().abs().amax(dim=(0, 1, 2))
+
+    def reg(site, node, h, stride, padding):
+        amax(site, h)
+        if quant and node.quantized:  # mixed trees carry fp nodes (skip_middle)
+            return conv2d_w8a8(h, node.w_q, node.s_w, node.s_in, node.b, node.s_dq,
+                               stride=stride, padding=padding, out_dtype=compute_dtype)
+        return conv2d(h, node.w, node.b, stride=stride, padding=padding,
+                      compute_dtype=compute_dtype)
+
+    def sep(site, s, h):
+        amax(f"{site}/depthwise", h)
+        d = s.depthwise
+        if quant and d.quantized:
+            y = depthwise_conv2d_w8a8(h, d.w_q, d.s_w, d.s_in, d.s_dq, out_dtype=compute_dtype,
+                                      use_kernels=use_kernels)
+        else:
+            y = conv2d(h, d.w, padding=1, groups=h.shape[-1], compute_dtype=compute_dtype)
+        return reg(f"{site}/pointwise", s.pointwise, y, 1, 0)
+
+    h = torch.relu(reg("conv1", tree.conv1, x, 2, 0))
+    h = torch.relu(reg("conv2", tree.conv2, h, 1, 0))
+    if upto == "stem":
+        return h
+    for k, blk in enumerate(tree.blocks):
+        if fuse_middle and (blk.k1 or (quant and blk.k2)):
+            if blk.k1:
+                fn = middle_block if use_kernels else middle_block_ref
+            else:
+                fn = middle_block_w8 if use_kernels else middle_block_w8_ref
+            h = fn(h.contiguous(), *blk.packed_operands())
+        else:
+            inp = h
+            for i, unit in enumerate(blk.units):
+                if i > 0 or blk.start_with_relu:
+                    h = torch.relu(h)
+                h = sep(f"blocks/{k}/units/{i}", unit, h)
+            if blk.stride != 1:
+                h = max_pool2d(h, 3, blk.stride, 1)
+            skip = inp if blk.skip is None else reg(f"blocks/{k}/skip", blk.skip, inp, blk.stride, 0)
+            h = h + skip
+        if upto == f"block{k + 1}":
+            return h
+    h = torch.relu(sep("conv3", tree.conv3, h))
+    h = torch.relu(sep("conv4", tree.conv4, h))
+    if upto == "exit":
+        return h
+    out = global_avg_pool(h)
+    if not features_only and tree.fc_w is not None:
+        out = linear(out, tree.fc_w, tree.fc_b, compute_dtype=compute_dtype)
+    return (out, obs) if observe else out
+
+
+@torch.inference_mode()
+def calibrate_amax(fp_tree: QuantizedXception, calib_x: torch.Tensor, *,
+                   compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, np.ndarray]:
+    """Per-site, per-input-channel amaxes of the plain fp walk over one
+    calibration batch ``calib_x`` (serving-normalised, /255) at the compute
+    dtype. Returns ``{site: fp32 (Ci,)}`` in walk order; both ``act_scales``
+    modes of :func:`quantize_folded_xception` build from it."""
+    _, obs = xception_quant_walk(fp_tree, calib_x, observe=True, compute_dtype=compute_dtype,
+                                 features_only=True, use_kernels=False)
+    return {k: v.cpu().numpy().astype(np.float32) for k, v in obs.items()}
+
+
+def _quant_conv_node(node: ConvNode, a_vec, *, headroom: float, act_scales: str,
+                     smooth_alpha: float, depthwise: bool = False) -> ConvNode:
+    """Quantize one fp conv node against its calibrated input-amax vector.
+
+    ``act_scales="tensor"``: ``s_in = amax/127``, dequant ``s_in * s_w``.
+    ``act_scales="channel"``: SmoothQuant-style folding of a per-input-channel
+    scale ``s_fold[c] = a_c^alpha / w_c^(1-alpha)`` into the weight before it
+    is quantized, so every channel uses its whole int8 range; the quantize
+    scale becomes ``s_fold * s_act`` and the epilogue keeps the scalar
+    ``s_dq = s_act``. For a depthwise conv the fold lands on the output
+    channel, where ``s_w`` absorbs it.
+    """
+    w = node.w.float()
+    a_vec = np.atleast_1d(np.asarray(a_vec, np.float32))
+    if act_scales == "tensor" or (act_scales == "channel" and a_vec.size == 1):
+        w_q, s_w = quantize_weight(w)
+        s_in = torch.tensor(max(float(a_vec.max()), 1e-12) * headroom / 127.0, dtype=torch.float32,
+                            device=w.device)
+        q = dict(w_q=w_q, s_w=s_w, s_in=s_in)
+    elif act_scales == "channel":
+        red = (1, 2, 3) if depthwise else (0, 2, 3)  # OIHW; depthwise folds on O
+        w_c = torch.clamp_min(w.abs().amax(dim=red), 1e-8)
+        a_c = torch.clamp_min(torch.tensor(a_vec, device=w.device), 1e-8)
+        s_fold = a_c ** smooth_alpha / w_c ** (1.0 - smooth_alpha)
+        shape = [1, 1, 1, 1]
+        shape[0 if depthwise else 1] = -1
+        w_q, s_w = quantize_weight(w * s_fold.reshape(shape))
+        s_act = torch.clamp_min(torch.max(a_c / s_fold), 1e-12) * headroom / 127.0
+        q = dict(w_q=w_q, s_w=s_w, s_in=(s_fold * s_act).float(), s_dq=s_act.float())
+    else:
+        raise ValueError(f"act_scales must be 'tensor' or 'channel', got {act_scales!r}")
+    if node.b is not None:
+        q["b"] = node.b.float()
+    return ConvNode(**q)
+
+
+@torch.inference_mode()
+def quantize_folded_xception(
+    fp_tree: QuantizedXception, amaxes: dict, *, headroom: float = 1.0,
+    quant_depthwise: bool = False, skip_middle: bool = False, act_scales: str = "channel",
+    smooth_alpha: float = 0.5,
+) -> QuantizedXception:
+    """The w8a8 tree from the fp32 fp tree and calibrated amaxes.
+
+    ``headroom`` scales every activation amax. ``quant_depthwise`` also
+    quantizes the depthwise 3x3s, so the activation chain through each
+    sepconv unit stays int8. ``skip_middle`` leaves the middle-flow blocks
+    fp, for K1 under ``fuse_middle``. ``act_scales``/``smooth_alpha``: see
+    :func:`_quant_conv_node`; "channel" is the default, as in the JAX package.
+    """
+    missing = [s for s in _sites(fp_tree, depthwise=quant_depthwise) if s not in amaxes]
+    if missing:
+        raise ValueError(f"calibration amaxes missing sites: {missing}")
+
+    def qconv(node, site, depthwise=False):
+        return _quant_conv_node(node, amaxes[site], headroom=headroom, act_scales=act_scales,
+                                smooth_alpha=smooth_alpha, depthwise=depthwise)
+
+    def qsep(s, site):
+        if quant_depthwise:
+            dw = qconv(s.depthwise, f"{site}/depthwise", depthwise=True)
+        else:
+            dw = ConvNode(w=s.depthwise.w)
+        return SepNode(dw, qconv(s.pointwise, f"{site}/pointwise"))
+
+    blocks = []
+    for k, (spec, blk) in enumerate(zip(XCEPTION_BLOCK_SPECS, fp_tree.blocks)):
+        if skip_middle and spec[3] == 1 and spec[4]:
+            blocks.append(blk)  # fp node, K1-routable
+            continue
+        units = [qsep(u, f"blocks/{k}/units/{i}") for i, u in enumerate(blk.units)]
+        skip = None if blk.skip is None else qconv(blk.skip, f"blocks/{k}/skip")
+        blocks.append(QuantBlock(spec, units, skip))
+    return QuantizedXception(
+        qconv(fp_tree.conv1, "conv1"), qconv(fp_tree.conv2, "conv2"), blocks,
+        qsep(fp_tree.conv3, "conv3"), qsep(fp_tree.conv4, "conv4"), fp_tree.fc_w, fp_tree.fc_b)
+
+
+def quantize_xception(model, calib_x: torch.Tensor, *, compute_dtype: torch.dtype = torch.bfloat16,
+                      headroom: float = 1.0, quant_depthwise: bool = False) -> QuantizedXception:
+    """fold (fp32) -> calibrate -> quantize in one call; ``model`` is a live-BN
+    :class:`~.xception.Xception` on ``calib_x``'s device."""
+    from .fold import fold_xception_bn
+
+    fp_tree = QuantizedXception.from_folded(fold_xception_bn(model, torch.float32))
+    amaxes = calibrate_amax(fp_tree, calib_x, compute_dtype=compute_dtype)
+    return quantize_folded_xception(fp_tree, amaxes, headroom=headroom,
+                                    quant_depthwise=quant_depthwise)
+
+
+def quantized_xception_apply(tree: QuantizedXception, x: torch.Tensor, *,
+                             compute_dtype: torch.dtype = torch.bfloat16,
+                             features_only: bool = False, use_kernels: bool = True):
+    """The w8a8 serving forward (the ``w8a8`` mode: no fused middle flow)."""
+    return xception_quant_walk(tree, x, quant=True, compute_dtype=compute_dtype,
+                               features_only=features_only, use_kernels=use_kernels)

@@ -5,13 +5,19 @@ VisualScorer``. One call of :meth:`VisualScorer.score`:
 
 1. uint8 ``(B, T, H, W, 3)`` -> fp32 / 255, optional bilinear resize;
 2. BN-folded Xception over the B*T frames, the 8 middle-flow blocks through
-   the K1 kernel when the tensors are on CUDA (``models/fold.py``);
+   the K1 kernel when the tensors are on CUDA (``models/fold.py``); or, with
+   ``quantize``, the w8a8 tree (``models/quant.py``);
 3. LSTM over T in the compute dtype, last valid step;
 4. ArcFace cosine logits (s=30) in fp32, softmax fake probability.
 
 Clips are padded (or cut) to a length bucket as the JAX engine does, so the
-scores match it; the JAX meshes, jit cache and quantization modes are not
-ported here.
+scores match it; the JAX meshes and jit cache are not ported here.
+
+The quantization modes are the JAX engine's: ``"w8a8"`` (every conv and
+depthwise int8), ``"w8a8-hybrid"`` (int8 entry and exit, the fp middle flow
+through K1) and ``"w8a8-pallas"`` (int8 throughout, the middle flow through
+K2). The first :meth:`VisualScorer.score` calibrates on its batch unless
+:meth:`VisualScorer.calibrate` ran before.
 """
 from __future__ import annotations
 
@@ -33,6 +39,14 @@ from ..utils.jax_weights import (
 )
 from .fold import fold_xception_bn
 from .heads import ArcFace, XceptionLSTM, arcface_apply
+from .quant import (
+    QuantizedXception,
+    calibrate_amax,
+    quantize_folded_xception,
+    xception_quant_walk,
+)
+
+QUANT_MODES = (None, "w8a8", "w8a8-hybrid", "w8a8-pallas")
 
 
 def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
@@ -73,14 +87,25 @@ class VisualScorer:
         use_kernels: Optional[bool] = None,
         mask_padding: bool = True,
         buckets: Optional[Sequence[int]] = None,
+        quantize: Optional[str] = None,
         device="cuda",
     ):
         """``use_kernels=None`` runs the middle flow through the K1 kernel
-        exactly when ``device`` is CUDA; ``False`` runs the plain convs
-        (the reference runs compare against this)."""
+        (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
+        its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
+        versions (the reference runs compare against this). ``quantize``:
+        one of :data:`QUANT_MODES`."""
+        if quantize not in QUANT_MODES:
+            raise ValueError(
+                f"quantize must be None, 'w8a8', 'w8a8-hybrid' or 'w8a8-pallas', got {quantize!r}"
+            )
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.folded_backbone = fold_xception_bn(model.backbone, compute_dtype).to(self.device)
+        # the fp path's weights, stored in the compute dtype; a quantized
+        # scorer serves the w8a8 tree instead and folds only at fp32 (below)
+        self.folded_backbone = (
+            None if quantize else fold_xception_bn(model.backbone, compute_dtype).to(self.device)
+        )
         self.lstm = copy.deepcopy(model.lstm).to(self.device)
         self.arcface_w = arcface.w.detach().to(self.device, torch.float32)
         self.arcface_s = arcface_s
@@ -89,22 +114,65 @@ class VisualScorer:
         self.use_kernels = self.device.type == "cuda" if use_kernels is None else use_kernels
         # length buckets: T pads up to a bucket, as in the JAX engine
         self.buckets = tuple(buckets) if buckets else None
+        self.quantize = quantize
+        # the quantizer reads fp32 folded weights: quantizing the compute-dtype
+        # fold would round every weight twice
+        self.fp_tree = (
+            QuantizedXception.from_folded(fold_xception_bn(model.backbone, torch.float32))
+            .to(self.device) if quantize else None
+        )
+        self.qbackbone: Optional[QuantizedXception] = None  # set by calibrate()
 
-    @torch.inference_mode()
-    def frame_features(self, frames_u8: np.ndarray) -> torch.Tensor:
-        """``(B, T, H, W, 3)`` uint8 -> per-frame features ``(B, T, 2048)`` in
-        the compute dtype, on the scorer's device."""
+    def _frames_to_x(self, frames_u8: np.ndarray) -> torch.Tensor:
         B, T = frames_u8.shape[:2]
         u8 = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
         x = u8.reshape((B * T,) + tuple(u8.shape[2:])).float() / 255.0
         if self.frame_size is not None and tuple(x.shape[1:3]) != tuple(self.frame_size):
             x = resize_bilinear(x, self.frame_size)
-        feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels)
+        return x
+
+    def calibrate(self, frames_u8: np.ndarray, *, refine_passes: int = 0) -> None:
+        """Fit the w8a8 activation scales on a representative uint8 frame
+        batch ``(B, T, H, W, 3)`` and switch the backbone to the quantized
+        tree (no-op when ``quantize=None``). The depthwise convs are
+        quantized too; ``"w8a8-hybrid"`` leaves the middle flow fp."""
+        if self.quantize is None:
+            return
+        if refine_passes:
+            raise NotImplementedError(
+                "refine_passes > 0: the affine refinement (refine_quantized_xception) is not "
+                "ported yet (ROADMAP Queue 1 item 6)")
+        x = self._frames_to_x(np.asarray(frames_u8))
+        amaxes = calibrate_amax(self.fp_tree, x, compute_dtype=self.compute_dtype)
+        self.qbackbone = quantize_folded_xception(
+            self.fp_tree, amaxes, quant_depthwise=True,
+            skip_middle=self.quantize == "w8a8-hybrid",
+        )
+
+    @torch.inference_mode()
+    def frame_features(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """``(B, T, H, W, 3)`` uint8 -> per-frame features ``(B, T, 2048)`` in
+        the compute dtype, on the scorer's device. A quantized scorer not yet
+        calibrated calibrates on this batch first, as :meth:`score` does."""
+        if self.quantize is not None and self.qbackbone is None:
+            self.calibrate(frames_u8)
+        B, T = frames_u8.shape[:2]
+        x = self._frames_to_x(frames_u8)
+        if self.qbackbone is not None:
+            feats = xception_quant_walk(
+                self.qbackbone, x, quant=True, compute_dtype=self.compute_dtype,
+                features_only=True, fuse_middle=self.quantize != "w8a8",
+                use_kernels=self.use_kernels,
+            )
+        else:
+            feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels)
         return feats.reshape(B, T, -1)
 
     @torch.inference_mode()
     def score(self, frames_u8: np.ndarray, lengths: Optional[np.ndarray] = None) -> np.ndarray:
         """``(B, T, H, W, 3)`` uint8 -> fake probabilities ``(B,)``."""
+        if self.quantize is not None and self.qbackbone is None:
+            self.calibrate(frames_u8)  # implicit first-batch calibration
         B, T = frames_u8.shape[:2]
         if lengths is None:
             lengths = np.full((B,), T, np.int32)

@@ -46,19 +46,36 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing or stale, then load it."""
+def build(*names: str) -> None:
+    """Compile every ``csrc/<name>.cu`` whose build is missing or stale, one
+    ``nvcc`` per source, all running at once."""
     nvcc = _find_nvcc()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the CUDA kernels need an NVIDIA GPU")
-    so = BUILD_DIR / f"lib{name}-{_digest()}.so"
-    if not so.exists():
+    digest = _digest()
+    jobs = []
+    for name in names:
+        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
-    return ctypes.CDLL(str(so))
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing or stale, then load it."""
+    build(name)
+    return ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest()}.so"))

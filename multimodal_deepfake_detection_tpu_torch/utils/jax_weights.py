@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..models.heads import ArcFace, XceptionLSTM
-from ..models.xception import Xception
+from ..models.quant import ConvNode, QuantBlock, QuantizedXception, SepNode
+from ..models.xception import XCEPTION_BLOCK_SPECS, Xception
 
 _TO_TORCH = {
     "conv": lambda a: a.transpose(3, 2, 0, 1),
@@ -147,3 +148,58 @@ def arcface_from_jax(params) -> ArcFace:
     model = ArcFace(feat_dim, num_classes)
     _import(_arcface_leaves(model), params, {})
     return model
+
+
+# ---------------------------------------------------------------------------
+# Folded and w8a8 trees (models/quant.py): nodes {w [, b]} or
+# {w_q, s_w, s_in [, s_dq] [, b]}; w and w_q are conv weights (HWIO <-> OIHW,
+# depthwise (3, 3, 1, C) <-> (C, 1, 3, 3)), the rest stay as they are.
+# ---------------------------------------------------------------------------
+
+def _node_from_jax(node) -> ConvNode:
+    return ConvNode(**{
+        k: torch.from_numpy(np.array(_TO_TORCH["conv" if k in ("w", "w_q") else "plain"](
+            np.asarray(v))))
+        for k, v in node.items()
+    })
+
+
+def _node_to_jax(node: ConvNode) -> Dict:
+    return {  # order="C", not ascontiguousarray, which makes a scalar 1-d
+        k: np.array(_TO_JAX["conv" if k in ("w", "w_q") else "plain"](t.detach().cpu().numpy()),
+                    order="C")
+        for k, t in node.fields().items()
+    }
+
+
+def quantized_xception_from_jax(qtree) -> QuantizedXception:
+    """A JAX ``quantize_folded_xception`` tree (or a ``fold_xception_bn`` one,
+    all fp) -> :class:`QuantizedXception`."""
+    sep = lambda s: SepNode(_node_from_jax(s["depthwise"]), _node_from_jax(s["pointwise"]))
+    blocks = [
+        QuantBlock(spec, [sep(u) for u in bp["units"]],
+                   _node_from_jax(bp["skip"]) if "skip" in bp else None)
+        for spec, bp in zip(XCEPTION_BLOCK_SPECS, qtree["blocks"])
+    ]
+    fc = qtree.get("fc")
+    fc_w, fc_b = ((torch.from_numpy(np.array(np.asarray(fc["w"]).T)),
+                   torch.from_numpy(np.array(np.asarray(fc["b"])))) if fc else (None, None))
+    return QuantizedXception(_node_from_jax(qtree["conv1"]), _node_from_jax(qtree["conv2"]),
+                             blocks, sep(qtree["conv3"]), sep(qtree["conv4"]), fc_w, fc_b)
+
+
+def quantized_xception_to_jax(tree: QuantizedXception) -> Dict:
+    """:class:`QuantizedXception` -> the JAX tree layout, numpy leaves."""
+    sep = lambda s: {"depthwise": _node_to_jax(s.depthwise), "pointwise": _node_to_jax(s.pointwise)}
+    blocks = []
+    for blk in tree.blocks:
+        bp = {"units": [sep(u) for u in blk.units]}
+        if blk.skip is not None:
+            bp["skip"] = _node_to_jax(blk.skip)
+        blocks.append(bp)
+    out = {"conv1": _node_to_jax(tree.conv1), "conv2": _node_to_jax(tree.conv2),
+           "blocks": blocks, "conv3": sep(tree.conv3), "conv4": sep(tree.conv4)}
+    if tree.fc_w is not None:
+        out["fc"] = {"w": np.ascontiguousarray(tree.fc_w.detach().cpu().numpy().T),
+                     "b": tree.fc_b.detach().cpu().numpy()}
+    return out

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import middle_block_w8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,6 +30,10 @@ sys.meta_path.insert(0, _Block())
 import multimodal_deepfake_detection_tpu_torch.models.serve
 import multimodal_deepfake_detection_tpu_torch.cli.serve
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8
+import multimodal_deepfake_detection_tpu_torch.ops.quant
+import multimodal_deepfake_detection_tpu_torch.models.quant
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
 assert not loaded, loaded
@@ -52,6 +58,15 @@ def test_loader_raises_without_nvcc(monkeypatch):
         _build.load_library("middle_block")
 
 
+@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8"])
+def test_int8_kernel_loaders_raise_without_nvcc(monkeypatch, name):
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_library(name)
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version():
     """Off the CPU the wrapper launches the kernel or raises. A meta tensor
     must raise rather than run the plain version."""
@@ -64,3 +79,24 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         middle_block(x, dw, pw, b)
     assert middle_block.launches == before
+
+
+def _meta_args(name):
+    """Well-formed operands of an int8 kernel's wrapper, ``x`` on the meta device."""
+    C = 16
+    x = torch.empty((1, 2, 2, C), device="meta")
+    if name == "middle_block_w8":
+        return middle_block_w8, (x, torch.zeros((3, 9, C)), torch.zeros((3, C, 64), dtype=torch.int8),
+                                 torch.ones((3, C)), torch.ones((3, C)), torch.ones(3),
+                                 torch.zeros((3, C)))
+    return dw_w8a8, (x, torch.zeros((C, 1, 3, 3), dtype=torch.int8), torch.ones(C), torch.ones(C),
+                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8"])
+def test_int8_kernels_never_take_the_plain_version_off_the_cpu(name):
+    fn, args = _meta_args(name)
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+    assert fn.launches == before

@@ -1,17 +1,25 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
 Marked ``gpu``; skips where CUDA is absent. Run on a machine with an H100:
-``python -m pytest tests/test_torch_kernels_gpu.py -q``. TF32 is off so the
-plain version's fp32 matmul is exact on bf16 operands; the bound is the CPU
-test's bf16 bound (rtol = atol = 1.6e-2) plus mean |d| <= 1e-3.
+``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``. TF32 is
+off so the plain versions' fp32 matmuls are exact on bf16 operands. K1's
+bound is the CPU test's bf16 bound (rtol = atol = 1.6e-2) plus mean |d| <=
+1e-3; K2 and the int8 depthwise have exact integer paths and are held to
+bit equality.
 """
 import pytest
 import torch
 
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
     middle_block,
     middle_block_ref,
 )
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+    middle_block_w8,
+    middle_block_w8_ref,
+)
+from multimodal_deepfake_detection_tpu_torch.ops.quant import conv2d_w8a8, quantize_weight
 
 pytestmark = pytest.mark.gpu
 
@@ -58,3 +66,65 @@ def test_middle_block_rejects_non_contiguous(cuda):
         middle_block(x, torch.zeros((3, 9, C), device=cuda),
                      torch.zeros((3, C, C), device=cuda, dtype=torch.bfloat16),
                      torch.zeros((3, C), device=cuda))
+
+
+@pytest.mark.parametrize(
+    "N,H,C,dtype",
+    [(15, 4, 728, torch.bfloat16), (3, 2, 728, torch.bfloat16), (1, 1, 728, torch.bfloat16),
+     (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16)],
+)
+def test_middle_block_w8_kernel_matches_plain(cuda, N, H, C, dtype):
+    """K2 with per-channel ``s_in``; the int8 pointwise rows' padding past C
+    holds garbage, which the kernel must never read."""
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + C)
+    ldk = -(-C // 64) * 64
+    x = torch.randn((N, H, H, C), generator=g).to(cuda, dtype)
+    dw = torch.randn((3, 9, C), generator=g) * 0.2
+    pw_q = torch.randint(-127, 128, (3, C, ldk), generator=g, dtype=torch.int8)
+    s_w = torch.rand((3, C), generator=g) * 1e-2 + 1e-3
+    s_dq = torch.full((3,), 2.5 / 127.0)
+    s_in = s_dq[:, None] * (0.5 + 1.5 * torch.rand((3, C), generator=g))
+    b = torch.randn((3, C), generator=g) * 0.1
+    ops = (x,) + tuple(t.to(cuda) for t in (dw, pw_q, s_w, s_in, s_dq, b))
+    before = middle_block_w8.launches
+    got = middle_block_w8(*ops)
+    torch.cuda.synchronize()
+    assert middle_block_w8.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, middle_block_w8_ref(*ops))
+
+
+@pytest.mark.parametrize(
+    "N,H,C,dtype,out_dtype,scalar",
+    [(3, 125, 64, torch.bfloat16, torch.bfloat16, False),
+     (5, 16, 728, torch.bfloat16, torch.bfloat16, False),
+     (7, 8, 1536, torch.float32, torch.bfloat16, True),
+     (15, 1, 1536, torch.float32, torch.float32, False)],
+)
+def test_dw_w8a8_kernel_matches_plain(cuda, N, H, C, dtype, out_dtype, scalar):
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + C)
+    x = torch.randn((N, H, H, C), generator=g).to(cuda, dtype)
+    w_q = torch.randint(-127, 128, (C, 1, 3, 3), generator=g, dtype=torch.int8).to(cuda)
+    s_in = (2.5 / 127.0) * (0.5 + 1.5 * torch.rand(1 if scalar else C, generator=g))
+    s_in = (s_in.reshape(()) if scalar else s_in).to(cuda)
+    sc = (1e-3 * (0.5 + torch.rand(C, generator=g))).to(cuda)
+    before = dw_w8a8.launches
+    got = dw_w8a8(x, w_q, s_in, sc, out_dtype)
+    torch.cuda.synchronize()
+    assert dw_w8a8.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == x.shape
+    assert torch.equal(got, dw_w8a8_ref(x, w_q, s_in, sc, out_dtype))
+
+
+@pytest.mark.parametrize("N,H,Ci,k,stride", [(2, 11, 3, 3, 2), (3, 2, 24, 1, 1), (1, 1, 24, 1, 1)])
+def test_conv2d_w8a8_pads_for_int_mm(cuda, N, H, Ci, k, stride):
+    """``torch._int_mm`` on CUDA refuses M <= 16 and K % 8 != 0: conv1's K of
+    27 and the small-M exit flow are padded, and the result is the CPU's."""
+    g = torch.Generator().manual_seed(N + H + Ci)
+    x = torch.randn((N, H, H, Ci), generator=g)
+    w_q, s_w = quantize_weight(torch.randn((16, Ci, k, k), generator=g))
+    s_in, b = torch.tensor(2.5 / 127.0), torch.randn(16, generator=g)
+    ref = conv2d_w8a8(x, w_q, s_w, s_in, b, stride=stride, out_dtype=torch.float32)
+    got = conv2d_w8a8(x.to(cuda), w_q.to(cuda), s_w.to(cuda), s_in.to(cuda), b.to(cuda),
+                      stride=stride, out_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-6)
