@@ -9,24 +9,28 @@ raises and exits non-zero:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: compile every kernel of the serving paths from csrc/ with nvcc,
    one process per source, all at once: K1 (middle_block.cu), K2
-   (middle_block_w8.cu) and the int8 depthwise (dw_w8a8.cu);
+   (middle_block_w8.cu), the int8 depthwise (dw_w8a8.cu) and K3
+   (entry_block.cu);
 3. kernels, TF32 off: each kernel against its plain PyTorch version at the
-   shapes serving gives it;
+   shapes serving gives it, and at edge shapes;
 4. slice: a seeded full-width XceptionLSTMV + ArcFace bundle in the JAX
    format and a few uint8 clips at 256^2, scored through the port's CLI
-   (``cli/serve.py --engine visual``, bf16 on CUDA), once on the fp path and
-   once with ``--quantize w8a8-pallas``, each with the launch counters set
-   to 0 just before and read just after: 8 K1 launches per backbone call on
-   the fp path; 8 K2 and 10 int8-depthwise launches, and no K1, on the w8a8
-   path. Then every mode through ``VisualScorer``, counted the same way
-   (w8a8-hybrid: 8 K1 and 10 int8-depthwise launches per backbone call;
-   w8a8: 34 int8-depthwise), against the plain path on the same calibrated
-   tree and against the plain fp32 path; and per mode two controls, wrong
-   trees put in the program's place, which must fail those bars;
+   (``cli/serve.py --engine visual``, bf16 on CUDA), on the fp path, with
+   ``--quantize w8a8-pallas`` and with ``--fuse_entry true``, each with the
+   launch counters set to 0 just before and read just after: 8 K1 launches
+   per backbone call on the fp path; 8 K2 and 10 int8-depthwise launches,
+   and no K1, on the w8a8 path; 8 K1 and 4 K3 on the fused-entry path. Then
+   every mode through ``VisualScorer``, counted the same way (w8a8-hybrid: 8
+   K1 and 10 int8-depthwise launches per backbone call; w8a8: 34
+   int8-depthwise), against the plain path on the same calibrated tree and
+   against the plain fp32 path; per quant mode two controls, wrong trees put
+   in the program's place, and on the fused-entry path one, a wrong K3
+   operand, each of which must fail its bars;
 5. times on the card (CUDA events after warmup): each kernel against its
-   plain version and against PyTorch's own calls for the same function, and
-   the slice's frames/s, fp and w8a8, in turns; then the device busy share
-   and the top kernels of one scored batch per path (``torch.profiler``).
+   plain version and against PyTorch's own calls for the same function (K3
+   per stride-2 block of 256 frames), and the slice's frames/s, fp (plain,
+   K1, K1 + K3) and w8a8, in turns; then the device busy share and the top
+   kernels of one scored batch per kernel path (``torch.profiler``).
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record; the last line is
@@ -85,9 +89,30 @@ DW_SHAPES = (  # (N, H=W, C): the 10 int8 depthwise sites of 256 frames at 256^2
     (256, 8, 1024), (256, 8, 1536),  # conv3, conv4
     (15, 1, 1536),  # the exit flow of a 32^2 input
 )
+# K3: (N, H, W, Cin, Cmid, Cout, leading ReLU, dtype name). First the four
+# stride-2 blocks of 256 frames at 256^2 (blocks 1, 2, 3, 12); then odd N at
+# the 64^2 blocks, 1x1, 2x2 and 3x3 images, a non-square one with C = 40
+# (rows padded 40 -> 64), and fp32 I/O. Packed rows hold NaN past Cin / Cmid.
+K3_BLOCKS = (
+    (256, 125, 125, 64, 128, 128, False, "bfloat16"),
+    (256, 63, 63, 128, 256, 256, True, "bfloat16"),
+    (256, 32, 32, 256, 728, 728, True, "bfloat16"),
+    (256, 16, 16, 728, 728, 1024, True, "bfloat16"),
+)
+K3_SHAPES = K3_BLOCKS + (
+    (15, 29, 29, 64, 128, 128, False, "bfloat16"),
+    (15, 15, 15, 128, 256, 256, True, "bfloat16"),
+    (15, 8, 8, 256, 728, 728, True, "bfloat16"),
+    (15, 4, 4, 728, 728, 1024, True, "bfloat16"),
+    (3, 1, 1, 728, 728, 1024, True, "bfloat16"),
+    (3, 2, 2, 728, 728, 1024, True, "bfloat16"),
+    (3, 3, 3, 256, 728, 728, True, "bfloat16"),
+    (4, 13, 21, 40, 16, 24, False, "bfloat16"),
+    (5, 15, 15, 128, 256, 256, True, "float32"),
+)
 CLIP_LENGTHS = (8, 5, 3, 8, 5)  # odd count, odd lengths; batch_size 4 -> 2 backbone calls
 BATCH_SIZE = 4
-KERNELS = ("middle_block", "middle_block_w8", "dw_w8a8")
+KERNELS = ("middle_block", "middle_block_w8", "dw_w8a8", "entry_block")
 
 
 def say(msg: str) -> None:
@@ -176,9 +201,30 @@ def dw_operands(torch, N, H, C, dtype, seed):
     return x, w_q.cuda(), s_in.cuda(), sc.cuda()
 
 
+def k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed):
+    """Random K3 operands, the packed rows padded to 32 elements with NaN,
+    which the kernel must never read."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rows(out, k):
+        w = torch.full((out, -(-k // 32) * 32), float("nan"))
+        w[:, :k] = torch.randn((out, k), generator=g) / k ** 0.5
+        return w.to("cuda", torch.bfloat16)
+
+    vec = lambda *shape, s: (torch.randn(shape, generator=g) * s).cuda()
+    gx = torch.Generator("cuda").manual_seed(seed)  # the largest inputs are made on the card
+    x = torch.randn((N, H, W, Cin), generator=gx, device="cuda").to(getattr(torch, dtype))
+    return (x, vec(9, Cin, s=0.3), rows(Cmid, Cin), vec(Cmid, s=0.1), vec(9, Cmid, s=0.3),
+            rows(Cout, Cmid), vec(Cout, s=0.1), rows(Cout, Cin), vec(Cout, s=0.1))
+
+
 def phase_kernels(torch) -> dict:
     """Every kernel against its plain version; returns the worst max |d| of each."""
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
+        entry_block,
+        entry_block_ref,
+    )
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
         middle_block,
         middle_block_ref,
@@ -216,6 +262,14 @@ def phase_kernels(torch) -> dict:
     worst["dw_w8a8"] = max(worst["dw_w8a8"], compare(
         torch, "dw_w8a8 (15,4,4,1536) bfloat16, scalar s_in", dw_w8a8(x, w_q, s_in, sc, x.dtype),
         dw_w8a8_ref(x, w_q, s_in, sc, x.dtype), int8=True))
+    for i, (N, H, W, Cin, Cmid, Cout, lead, dtype) in enumerate(K3_SHAPES):
+        ops = k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed=400 + i)
+        got = entry_block(*ops, leading_relu0=lead)
+        torch.cuda.synchronize()
+        worst["entry_block"] = max(worst["entry_block"], compare(
+            torch, f"K3 ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} {dtype} relu={lead}", got,
+            entry_block_ref(*ops, leading_relu0=lead)))
+        del ops, got
     return worst
 
 
@@ -245,12 +299,14 @@ def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None
 
 def counters():
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
         middle_block_w8,
     )
 
-    return {"middle_block": middle_block, "middle_block_w8": middle_block_w8, "dw_w8a8": dw_w8a8}
+    return {"middle_block": middle_block, "middle_block_w8": middle_block_w8, "dw_w8a8": dw_w8a8,
+            "entry_block": entry_block}
 
 
 def counted(torch, label, run, expected: dict):
@@ -268,21 +324,21 @@ def counted(torch, label, run, expected: dict):
     return out
 
 
-def per_call(calls: int, k1=0, k2=0, dw=0) -> dict:
-    return {"middle_block": k1 * calls, "middle_block_w8": k2 * calls, "dw_w8a8": dw * calls}
+def per_call(calls: int, k1=0, k2=0, dw=0, k3=0) -> dict:
+    return {"middle_block": k1 * calls, "middle_block_w8": k2 * calls, "dw_w8a8": dw * calls,
+            "entry_block": k3 * calls}
 
 
-def run_cli(torch, workdir, bundle, clip_dir, quantize, expected):
-    """Score the clips through the port's CLI, counting launches; checks the
-    JSONL; returns the scores."""
+def run_cli(torch, workdir, bundle, clip_dir, label, flags, expected):
+    """Score the clips through the port's CLI with the extra ``flags``,
+    counting launches; checks the JSONL; returns the scores."""
     from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
 
-    out = os.path.join(workdir, f"scores_{quantize or 'fp'}.jsonl")
+    out = os.path.join(workdir, f"scores_{label}.jsonl")
     argv = ["--engine", "visual", "--ckpt_path", bundle, "--input", clip_dir, "--output", out,
             "--batch_size", str(BATCH_SIZE), "--compute_dtype", "bfloat16", "--device", "cuda"]
-    argv += ["--quantize", quantize] if quantize else []
-    emitted = counted(torch, f"slice CLI {quantize or 'fp'}",
-                      lambda: cli_serve.main(argv, log=say), expected)
+    emitted = counted(torch, f"slice CLI {label}",
+                      lambda: cli_serve.main(argv + flags, log=say), expected)
     recs = [json.loads(line) for line in open(out)]
     scores = np.array([r["score"] for r in recs], np.float64)
     if len(recs) != len(CLIP_LENGTHS) or not (np.isfinite(scores).all() and (0 <= scores).all()
@@ -304,7 +360,7 @@ def outputs(torch, scorer, batches):
 def held(torch, label, a, b, bars, *, control: bool = False) -> None:
     """Min per-frame feature cosine and max score |d| of ``outputs`` ``a``
     and ``b`` against ``bars = (cos_min, score_tol)``. A control is a wrong
-    quantization put in the program's place: it must fail the bars."""
+    tree or operand put in the program's place: it must fail the bars."""
     cos = torch.nn.functional.cosine_similarity(a[1], b[1], dim=-1).min().item()
     score_d = float(np.abs(a[0] - b[0]).max())
     ok = cos >= bars[0] and score_d <= bars[1]
@@ -344,12 +400,17 @@ def phase_slice(torch, workdir: str) -> dict:
     batches = [_pad_stack(clips[i : i + BATCH_SIZE]) for i in range(0, len(clips), BATCH_SIZE)]
     kw = dict(device="cuda", buckets=(25, 50, 75))
 
-    # the main path: the CLI, fp and --quantize w8a8-pallas
+    # the main paths: the CLI, fp, --quantize w8a8-pallas and --fuse_entry true
     launches = per_call(calls, k1=8)
-    fp_scores = run_cli(torch, workdir, bundle, clip_dir, None, launches)
+    fp_scores = run_cli(torch, workdir, bundle, clip_dir, "fp", [], launches)
     expected = per_call(calls, k2=8, dw=10)
-    q_scores = run_cli(torch, workdir, bundle, clip_dir, "w8a8-pallas", expected)
+    q_scores = run_cli(torch, workdir, bundle, clip_dir, "w8a8-pallas",
+                       ["--quantize", "w8a8-pallas"], expected)
     launches.update(middle_block_w8=expected["middle_block_w8"], dw_w8a8=expected["dw_w8a8"])
+    expected = per_call(calls, k1=8, k3=4)
+    fused_scores = run_cli(torch, workdir, bundle, clip_dir, "fuse_entry",
+                           ["--fuse_entry", "true"], expected)
+    launches.update(entry_block=expected["entry_block"])
 
     # each mode through VisualScorer (score + frame_features: 2 backbone
     # calls per batch), counted, against the plain fp32 path (no kernel) and
@@ -362,6 +423,24 @@ def phase_slice(torch, workdir: str) -> dict:
     held(torch, "slice fp vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
     if np.abs(got[0] - fp_scores).max() > 1e-4:
         raise AssertionError("the CLI's fp scores differ from VisualScorer's")
+    fused = VisualScorer.from_bundle(bundle, fuse_entry=True, **kw)
+    got = counted(torch, "slice fuse_entry (VisualScorer)", lambda: outputs(torch, fused, batches),
+                  per_call(2 * calls, k1=8, k3=4))
+    held(torch, "slice fuse_entry vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
+    if np.abs(got[0] - fused_scores).max() > 1e-4:
+        raise AssertionError("the CLI's fuse_entry scores differ from VisualScorer's")
+    # control: every K3 block's skip weight 4x too large, as a skip that sums
+    # each 2x2 window instead of taking its even pixel gives on smooth input.
+    # On a random model the features wash out faults that keep the scale
+    # (transposed taps, zeroed biases, permuted channels): PERF.md §6.
+    k3_blocks = [b for b in fused.folded_backbone.blocks if b.is_entry]
+    sound_skw = [b.k3_skw for b in k3_blocks]
+    for b in k3_blocks:
+        b.k3_skw = 4 * b.k3_skw
+    held(torch, "control fuse_entry, K3 skip weight x4, vs plain fp32",
+         outputs(torch, fused, batches), ref, (FEATURE_COS_MIN, SCORE_TOL), control=True)
+    for b, skw in zip(k3_blocks, sound_skw):
+        b.k3_skw = skw
     bf16_fold = QuantizedXception.from_folded(
         fold_xception_bn(load_visual_bundle(bundle)[0].backbone, torch.bfloat16)).to("cuda")
     for mode, per_backbone in (("w8a8-pallas", dict(k2=8, dw=10)),
@@ -514,12 +593,16 @@ def phase_times(torch, smi: str, workdir: str):
         f"({nbytes / ms['kernel'] / 1e6:.1f} GB/s), plain {ms['plain']:.4f} ms, quantize + "
         f"fp32 cuDNN depthwise {ms['library']:.4f} ms; runs {runs} [{smi}]")
 
+    bundle = os.path.join(workdir, "visual.npz")
+    fused = VisualScorer.from_bundle(bundle, device="cuda", fuse_entry=True)
+    times["entry_block"] = time_k3(torch, fused, smi)
+
     B, T, S = 32, 8, 256
     frames = np.random.default_rng(1).integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
-    bundle = os.path.join(workdir, "visual.npz")
     scorers = {
         "fp plain": VisualScorer.from_bundle(bundle, device="cuda", use_kernels=False),
         "fp K1": VisualScorer.from_bundle(bundle, device="cuda"),
+        "fp K1+K3": fused,
         "w8a8-pallas": VisualScorer.from_bundle(bundle, device="cuda", quantize="w8a8-pallas"),
     }
     for sc_ in scorers.values():
@@ -536,6 +619,47 @@ def phase_times(torch, smi: str, workdir: str):
             f"{B * T / ms * 1e3:.1f} frames/s; runs {runs} [{smi}]")
     profile_calls(torch, {k: v for k, v in scorers.items() if k != "fp plain"}, frames, smi)
     return times
+
+
+def time_k3(torch, scorer, smi: str):
+    """K3 per stride-2 block of the scorer's bf16 backbone, on random input
+    of 256 frames at 256^2: the kernel, its plain version, and the library
+    yardstick, the same folded block through cuDNN depthwise, cuBLAS 1x1,
+    ``max_pool2d`` and the strided skip conv (``FoldedBlock.forward(
+    use_kernels=False)``, which the fused path never calls). Returns the
+    times and the bound, each summed over the four blocks."""
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block_ref
+
+    blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
+    total = dict.fromkeys(("kernel", "plain", "library"), 0.0)
+    bound = {"bytes": 0.0, "operations": 0.0}
+    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, K3_BLOCKS)):
+        assert block.start_with_relu == lead and block.k3_pw0.shape[0] == Cmid
+        gx = torch.Generator("cuda").manual_seed(500 + k)
+        x = torch.randn((N, H, W, Cin), generator=gx, device="cuda").to(torch.bfloat16)
+        ops3 = block.k3_operands()
+        ms, runs = in_turns(torch, {
+            "plain": lambda: entry_block_ref(x, *ops3, leading_relu0=lead),
+            "kernel": lambda: block(x, True, True),
+            "library": lambda: block(x),
+        }, 5)
+        for name in total:
+            total[name] += ms[name]
+        M, Mp = N * H * W, N * ((H + 1) // 2) * ((W + 1) // 2)
+        ops = 2 * M * (Cin * Cmid + Cmid * Cout) + 2 * Mp * Cin * Cout
+        nbytes = 2 * (x.numel() + Mp * Cout + Cmid * Cin + Cout * Cmid + Cout * Cin)
+        b_ms, by = bound_ms(nbytes, ops, PEAK_BF16)
+        bound[by] += b_ms
+        say(f"time K3 block {(1, 2, 3, 12)[k]} ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} bf16: "
+            f"kernel {ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the "
+            f"pointwise), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS block {ms['library']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
+        del x
+    by = max(bound, key=bound.get)
+    say(f"time K3, 4 blocks of 256 frames: kernel {total['kernel']:.4f} ms, plain "
+        f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
+        f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
+    return total, (sum(bound.values()), by)
 
 
 def profile_calls(torch, scorers: dict, frames, smi: str, top: int = 15) -> None:
@@ -567,6 +691,9 @@ SOURCES = {
     # no TPU kernel: the JAX package's XLA op
     "dw_w8a8": ("multimodal_deepfake_detection_tpu_torch/csrc/dw_w8a8.cu",
                 "multimodal_deepfake_detection_tpu/ops/quant.py:103"),
+    "entry_block": ("multimodal_deepfake_detection_tpu_torch/csrc/entry_block.cu",
+                    "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry.py:291 and "
+                    "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry_striped.py:180"),
 }
 
 

@@ -8,8 +8,10 @@ visual``: scores every ``.npy`` uint8 frame stack ``(T, H, W, 3)`` under
         --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
 
 Flags are the JAX Config's visual fields, with the same names, defaults and
-``--field value`` syntax, plus ``--device``. ``--quantize w8a8|w8a8-hybrid|
-w8a8-pallas`` serves the int8 backbone, calibrated on the first batch.
+``--field value`` syntax, plus ``--device`` and ``--fuse_entry``.
+``--quantize w8a8|w8a8-hybrid|w8a8-pallas`` serves the int8 backbone,
+calibrated on the first batch; ``--fuse_entry true`` runs the fp path's
+stride-2 blocks through the K3 kernel.
 Video decoding, the other engines, AOT artifacts and the device mesh are not
 ported yet.
 """
@@ -42,6 +44,8 @@ class Config:
     # through K1) or "w8a8-pallas" (int8 middle flow through K2); calibrates
     # on the first scored batch
     quantize: str = ""
+    # fp path only: the 4 stride-2 blocks through the K3 kernel as well
+    fuse_entry: bool = False
     device: str = "cuda"
 
 
@@ -104,7 +108,7 @@ def build_engine(cfg: Config):
     return VisualScorer.from_bundle(
         cfg.ckpt_path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None,
         mask_padding=cfg.mask_padding, compute_dtype=parse_dtype(cfg.compute_dtype),
-        quantize=cfg.quantize or None, device=cfg.device,
+        quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, device=cfg.device,
     )
 
 

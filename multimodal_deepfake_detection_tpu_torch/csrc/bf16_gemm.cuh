@@ -1,0 +1,150 @@
+// The bf16 pointwise GEMM shared by K1 (middle_block.cu) and K3
+// (entry_block.cu) for Hopper, sm_90a:
+//     out[M, N] = epilogue(A[M, K] @ Bt[N, K]^T)
+// bf16 operands, fp32 accumulation, Hopper's warpgroup MMA. A CTA is three
+// warpgroups: one thread of the first issues TMA loads, the other two
+// compute a 128 x 256 tile, 64 rows each (wgmma m64n256k16). Both operands
+// are K-major (A rows are pixels, Bt rows are output channels), staged 64
+// K-wide (128-byte rows) in the canonical 128-byte-swizzled layout, 4 stages
+// deep: a stage's "full" mbarrier completes when its bytes land, its "empty"
+// one when both consumers are done with it. TMA zero-fills the ragged K and
+// N edges. The epilogue is a functor that works from the accumulator
+// registers and masks M and N itself; one with kStaged first fills the
+// freed stage memory from device memory (`stage`), all consumer threads
+// together, and then reads it back beside the accumulators.
+#pragma once
+
+#include "sm90_common.cuh"
+
+namespace mdfd {
+namespace gemm {
+
+constexpr int BM = 128;
+constexpr int BN = 256;
+constexpr int BK = 64;  // one 128-byte swizzle row of bf16
+constexpr int STAGES = 4;
+constexpr int A_TILE = BM * BK;  // elements per stage
+constexpr int B_TILE = BN * BK;
+constexpr int STAGE_BYTES = (A_TILE + B_TILE) * static_cast<int>(sizeof(bf16));
+constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + room to align to 1024
+
+// D[64 x 256] += A[64 x 16] * B[16 x 256]^T, both operands K-major in shared
+// memory, fp32 accumulators in the warpgroup's registers.
+__device__ __forceinline__ void wgmma_m64n256k16(float d[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));  // scale-d = 1: D += A * B
+}
+
+// Accumulator layout handed to the epilogue: warp w of the warpgroup holds
+// rows w*16 + lane/4 and +8 (`row` and `row + 8`); d[4j .. 4j+3] are columns
+// n0 + 8j + 2*(lane%4) and the next, upper then lower row. The functor is
+// called as epi(d, row, n0, lane, smem) and masks rows >= M and columns
+// >= N; `smem` is the 1024-aligned stage memory, STAGES * STAGE_BYTES.
+template <class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            int N, int K, const Epi epi) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[STAGES];
+  __shared__ uint64_t empty[STAGES];
+  // swizzled tiles need 1024-byte alignment
+  bf16* As = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Bs = As + STAGES * A_TILE;
+
+  const int tid = threadIdx.x;
+  // N tiles vary fastest: the CTAs that share an A tile run together, so A
+  // comes from device memory once and Bt stays resident in L2
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int KT = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread streams the k-tiles
+    if (tid == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int stage = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[stage], ((kt / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[stage], STAGE_BYTES);
+        tma_load(As + stage * A_TILE, &map_a, kt * BK, m0, &full[stage]);
+        tma_load(Bs + stage * B_TILE, &map_b, kt * BK, n0, &full[stage]);
+      }
+    }
+    return;
+  }
+
+  const int wg = (tid >> 7) - 1;  // consumer warpgroup: rows wg*64 .. wg*64+63 of the tile
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int stage = kt % STAGES;
+    mbar_wait(&full[stage], (kt / STAGES) & 1);
+    const bf16* as = As + stage * A_TILE + wg * 64 * BK;
+    const bf16* bs = Bs + stage * B_TILE;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s) wgmma_m64n256k16(d, make_desc(as + s * 16), make_desc(bs + s * 16));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // keep this k-tile's MMAs in flight; the previous k-tile's are done, so
+    // its stage goes back to the producer
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (kt > 0 && (tid & 127) == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  if constexpr (Epi::kStaged) {
+    // both consumer warpgroups are done with the stages (the producer has
+    // exited), then every consumer thread helps fill them
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    epi.stage(m0, n0, tid - 128, As);
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  }
+  const int lane = tid & 31;
+  const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // warpgroups are 128-aligned
+  epi(d, row, n0, lane, As);
+}
+
+// Tensor map of a GEMM operand: the first K columns of a row-major
+// [rows][ld] bf16 matrix, in boxes of 64 columns x box_rows rows.
+inline int operand_map(CUtensorMap* map, const bf16* base, int rows, int K, int ld, int box_rows) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, K, ld, box_rows);
+}
+
+// out[M, N] = epi(A[M, :K] @ Bt[N, :K]^T) on `stream`; A rows `lda`, Bt rows
+// `ldb` elements apart (multiples of 8). Returns a cudaError_t code.
+template <class Epi>
+int launch(const bf16* a, int lda, const bf16* bt, int ldb, int M, int N, int K, const Epi& epi,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_a, map_b;
+  if (int e = operand_map(&map_a, a, M, K, lda, BM)) return e;
+  if (int e = operand_map(&map_b, bt, N, K, ldb, BN)) return e;
+  const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  gemm_kernel<Epi><<<grid, THREADS, SMEM, stream>>>(map_a, map_b, N, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gemm
+}  // namespace mdfd

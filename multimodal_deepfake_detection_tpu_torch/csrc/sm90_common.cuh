@@ -1,8 +1,8 @@
-// Pieces shared by the middle-flow kernels (middle_block.cu, K1, and
-// middle_block_w8.cu, K2) for Hopper, sm_90a:
+// Pieces shared by the hand-written kernels (middle_block.cu, K1;
+// middle_block_w8.cu, K2; entry_block.cu, K3) for Hopper, sm_90a:
 //   - 8-wide loads of bf16 / fp32 activations;
-//   - the banded ReLU -> bf16 -> depthwise 3x3 kernel that writes the GEMM's
-//     A operand (bf16 for K1, int8 codes for K2);
+//   - the banded [ReLU ->] bf16 -> depthwise 3x3 kernel that writes the
+//     GEMM's A operand (bf16 for K1 and K3, int8 codes for K2);
 //   - mbarrier, TMA and wgmma shared-memory descriptor helpers, and the
 //     2-D tensor-map encoder.
 #pragma once
@@ -62,13 +62,15 @@ __device__ __forceinline__ void store8(int8_t* p, const float acc[8]) {
 }
 
 // ---------------------------------------------------------------------------
-// ReLU -> bf16 -> depthwise 3x3, fp32 taps, operand out. A block owns a band
-// of up to `rows_per_band` output rows of one image and 64 channels: it
+// [ReLU ->] bf16 -> depthwise 3x3, fp32 taps, operand out. A block owns a
+// band of up to `rows_per_band` output rows of one image and 64 channels: it
 // stages the band plus its one-row, one-column zero halo in shared memory
-// once (ReLU'd and rounded to bf16 as it lands), with the band's 9 x 64 taps,
-// then each thread computes 8 channels of one output pixel per step.
-// Products and sums are rounded separately (no FMA), in the TPU kernels'
-// dy-major order, so the result is bit-equal to the plain versions.
+// once (ReLU'd if RELU, and rounded to bf16 as it lands), with the band's
+// 9 x 64 taps, then each thread computes 8 channels of one output pixel per
+// step. Products and sums are rounded separately (no FMA), in the order of
+// the TPU kernel it stands in for, so the result is bit-equal to the plain
+// versions: K1/K2's dy-major sum of the nine taps, or with COL_SUMS K3's
+// column sums, per dx the sum over dy, then (dx0 + dx1) + dx2.
 // ---------------------------------------------------------------------------
 constexpr int DW_CC = 64;  // channels per block
 constexpr int DW_THREADS = 256;
@@ -77,7 +79,7 @@ __host__ __device__ constexpr int dw_smem_bytes(int rows, int W) {
   return (rows + 2) * (W + 2) * DW_CC * 2 + 9 * DW_CC * 4;
 }
 
-template <typename T, typename OutT>
+template <typename T, typename OutT, bool RELU = true, bool COL_SUMS = false>
 __global__ void __launch_bounds__(DW_THREADS)
 dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
                   OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band) {
@@ -113,8 +115,9 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
       __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[e] = __floats2bfloat162_rn(f[2 * e] > 0.f ? f[2 * e] : 0.f,
-                                     f[2 * e + 1] > 0.f ? f[2 * e + 1] : 0.f);
+        o[e] = RELU ? __floats2bfloat162_rn(f[2 * e] > 0.f ? f[2 * e] : 0.f,
+                                            f[2 * e + 1] > 0.f ? f[2 * e + 1] : 0.f)
+                    : __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
     }
     *reinterpret_cast<uint4*>(tile + (r * pitch + col) * DW_CC + v * 8) = packed;
   }
@@ -126,22 +129,42 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
     const int r = p / W;
     const int w = p - r * W;
     float acc[8];
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
+    if constexpr (COL_SUMS) {
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
-        float in[8];
-        load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
-        const float4* tp = reinterpret_cast<const float4*>(taps_s + (dy * 3 + dx) * DW_CC + v * 8);
-        const float4 t0 = tp[0];
-        const float4 t1 = tp[1];
-        const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+        float col[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float prod = __fmul_rn(in[e], t[e]);
-          acc[e] = (dy == 0 && dx == 0) ? prod : __fadd_rn(acc[e], prod);
+        for (int dy = 0; dy < 3; ++dy) {
+          float in[8], t[8];
+          load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
+          load8(taps_s + (dy * 3 + dx) * DW_CC + v * 8, t);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float prod = __fmul_rn(in[e], t[e]);
+            col[e] = dy == 0 ? prod : __fadd_rn(col[e], prod);
+          }
         }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = dx == 0 ? col[e] : __fadd_rn(acc[e], col[e]);
       }
+    } else {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          float in[8];
+          load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
+          const float4* tp = reinterpret_cast<const float4*>(taps_s + (dy * 3 + dx) * DW_CC + v * 8);
+          const float4 t0 = tp[0];
+          const float4 t1 = tp[1];
+          const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float prod = __fmul_rn(in[e], t[e]);
+            acc[e] = (dy == 0 && dx == 0) ? prod : __fadd_rn(acc[e], prod);
+          }
+        }
+    }
     const size_t pixel = static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w;
     store8(a + pixel * ldk + c0 + v * 8, acc);
   }
@@ -155,7 +178,7 @@ struct DwLaunch {
   int rows_per_band;
 };
 
-template <typename T, typename OutT>
+template <typename T, typename OutT, bool RELU = true, bool COL_SUMS = false>
 int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
   int rows = H < 8 ? H : 8;
   while (rows > 1 && dw_smem_bytes(rows, W) > 48 * 1024) --rows;
@@ -163,7 +186,8 @@ int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
   l->smem = dw_smem_bytes(rows, W);
   l->grid = dim3(N * ((H + rows - 1) / rows), (C + DW_CC - 1) / DW_CC);
   return static_cast<int>(cudaFuncSetAttribute(
-      dw3x3_relu_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, l->smem));
+      dw3x3_relu_kernel<T, OutT, RELU, COL_SUMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      l->smem));
 }
 
 // ---------------------------------------------------------------------------

@@ -11,7 +11,12 @@ The folded module stores its conv weights in one compute dtype (the JAX
 package casts them per call to the same values). Every stride-1, no-skip,
 square block that starts with a ReLU — the 8 middle-flow blocks — also keeps
 its weights packed for the K1 kernel (``ops/kernels/middle_block.py``), and
-``use_kernels=True`` routes those blocks through it at any trunk size.
+``use_kernels=True`` routes those blocks through it at any trunk size. Every
+stride-2 block with a skip and two units — entry blocks 1-3 and block 12 —
+keeps its weights packed for the K3 kernel (``ops/kernels/entry_block.py``),
+and ``use_kernels=True, fuse_entry=True`` routes those blocks through it too
+(the JAX ``use_pallas=True`` route with ``MDFD_ENTRY_FUSE_H`` listing every
+stride-2 block's input height).
 """
 from __future__ import annotations
 
@@ -21,10 +26,12 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv2d, global_avg_pool, linear, max_pool2d
+from ..ops.kernels.entry_block import entry_block, pack_entry_block
 from ..ops.kernels.middle_block import middle_block, pack_middle_block
 from .xception import Xception
 
 _EPS = 1e-5
+K3_OPERANDS = ("dw0", "pw0", "b0", "dw1", "pw1", "b1", "skw", "skb")
 
 
 def _fold(w: torch.Tensor, bn) -> tuple:
@@ -60,9 +67,9 @@ class FoldedBlock(nn.Module):
         folded = [_fold_sep(u.sep, u.bn) for u in block.units]
         self.units = nn.ModuleList(FoldedSep(*f, dtype) for f in folded)
         if block.skip is not None:
-            w, b = _fold(block.skip.conv.detach(), block.skip.bn)
-            self.register_buffer("skip_w", w.to(dtype))
-            self.register_buffer("skip_b", b.to(dtype))
+            skip = _fold(block.skip.conv.detach(), block.skip.bn)
+            self.register_buffer("skip_w", skip[0].to(dtype))
+            self.register_buffer("skip_b", skip[1].to(dtype))
         else:
             self.skip_w = self.skip_b = None
         self.is_middle = is_middle_block(self)
@@ -71,10 +78,22 @@ class FoldedBlock(nn.Module):
             self.register_buffer("k1_dw", dw)
             self.register_buffer("k1_pw", pw)
             self.register_buffer("k1_b", b)
+        self.is_entry = is_entry_block(self)
+        if self.is_entry:  # packed from the fp32 fold, as K1's weights are
+            for name, t in zip(K3_OPERANDS, pack_entry_block(folded, skip)):
+                self.register_buffer(f"k3_{name}", t)
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+    def k3_operands(self) -> tuple:
+        """K3's packed operands, in :func:`entry_block`'s order."""
+        return tuple(getattr(self, f"k3_{name}") for name in K3_OPERANDS)
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = False,
+                fuse_entry: bool = False) -> torch.Tensor:
         if use_kernels and self.is_middle:
             return middle_block(x.contiguous(), self.k1_dw, self.k1_pw, self.k1_b)
+        if use_kernels and fuse_entry and self.is_entry:
+            return entry_block(x.contiguous(), *self.k3_operands(),
+                               leading_relu0=self.start_with_relu)
         h = x
         for i, unit in enumerate(self.units):
             if i > 0 or self.start_with_relu:
@@ -94,6 +113,12 @@ def is_middle_block(block: FoldedBlock) -> bool:
         return False
     c = block.units[0].pw.shape[0]
     return all(tuple(u.pw.shape[:2]) == (c, c) for u in block.units)
+
+
+def is_entry_block(block: FoldedBlock) -> bool:
+    """True for the blocks K3 computes: stride 2, a projection skip, two
+    units (the JAX ``is_fusable_entry_block`` without its env gate)."""
+    return block.stride == 2 and block.skip_w is not None and len(block.units) == 2
 
 
 class FoldedXception(nn.Module):
@@ -116,17 +141,18 @@ class FoldedXception(nn.Module):
             self.fc_w = self.fc_b = None
 
     def forward(self, x: torch.Tensor, *, features_only: bool = False, use_kernels: bool = False,
-                upto: Optional[str] = None) -> torch.Tensor:
+                fuse_entry: bool = False, upto: Optional[str] = None) -> torch.Tensor:
         """NHWC images -> features (or logits). ``use_kernels`` routes the
-        middle blocks through K1; ``upto`` ("stem", "block<k>", "exit")
-        returns that stage's output."""
+        middle blocks through K1, and with ``fuse_entry`` the stride-2 blocks
+        through K3; ``upto`` ("stem", "block<k>", "exit") returns that
+        stage's output."""
         x = x.to(self.dtype)
         h = torch.relu(conv2d(x, self.conv1_w, self.conv1_b, stride=2))
         h = torch.relu(conv2d(h, self.conv2_w, self.conv2_b))
         if upto == "stem":
             return h
         for k, block in enumerate(self.blocks):
-            h = block(h, use_kernels)
+            h = block(h, use_kernels, fuse_entry)
             if upto == f"block{k + 1}":
                 return h
         h = torch.relu(self.conv3(h))

@@ -5,7 +5,8 @@ VisualScorer``. One call of :meth:`VisualScorer.score`:
 
 1. uint8 ``(B, T, H, W, 3)`` -> fp32 / 255, optional bilinear resize;
 2. BN-folded Xception over the B*T frames, the 8 middle-flow blocks through
-   the K1 kernel when the tensors are on CUDA (``models/fold.py``); or, with
+   the K1 kernel when the tensors are on CUDA, and with ``fuse_entry`` the 4
+   stride-2 blocks through the K3 kernel (``models/fold.py``); or, with
    ``quantize``, the w8a8 tree (``models/quant.py``);
 3. LSTM over T in the compute dtype, last valid step;
 4. ArcFace cosine logits (s=30) in fp32, softmax fake probability.
@@ -88,17 +89,23 @@ class VisualScorer:
         mask_padding: bool = True,
         buckets: Optional[Sequence[int]] = None,
         quantize: Optional[str] = None,
+        fuse_entry: bool = False,
         device="cuda",
     ):
         """``use_kernels=None`` runs the middle flow through the K1 kernel
         (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
         its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
         versions (the reference runs compare against this). ``quantize``:
-        one of :data:`QUANT_MODES`."""
+        one of :data:`QUANT_MODES`. ``fuse_entry`` also runs the 4 stride-2
+        blocks of the fp path through the K3 kernel when kernels run; the
+        w8a8 walk has no K3 route, so it raises together with ``quantize``."""
         if quantize not in QUANT_MODES:
             raise ValueError(
                 f"quantize must be None, 'w8a8', 'w8a8-hybrid' or 'w8a8-pallas', got {quantize!r}"
             )
+        if fuse_entry and quantize:
+            raise ValueError(f"fuse_entry=True runs the fp path's K3; quantize={quantize!r} "
+                             "has no fused-entry route")
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         # the fp path's weights, stored in the compute dtype; a quantized
@@ -115,6 +122,7 @@ class VisualScorer:
         # length buckets: T pads up to a bucket, as in the JAX engine
         self.buckets = tuple(buckets) if buckets else None
         self.quantize = quantize
+        self.fuse_entry = fuse_entry
         # the quantizer reads fp32 folded weights: quantizing the compute-dtype
         # fold would round every weight twice
         self.fp_tree = (
@@ -165,7 +173,8 @@ class VisualScorer:
                 use_kernels=self.use_kernels,
             )
         else:
-            feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels)
+            feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels,
+                                         fuse_entry=self.fuse_entry)
         return feats.reshape(B, T, -1)
 
     @torch.inference_mode()

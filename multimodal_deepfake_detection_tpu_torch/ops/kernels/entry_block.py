@@ -1,0 +1,204 @@
+"""K3: the Xception stride-2 block (entry blocks 1-3 and block 12) as a
+hand-written Hopper kernel.
+
+Replaces ``multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry.py::
+entry_block_pallas`` (``_entry_block_kernel``) and ``sepconv_entry_striped.py::
+entry_block_striped_pallas`` (``_striped_kernel``), the same function for
+images up to and above 96 rows, with weights packed as
+``sepconv_entry.py::pack_entry_block``. Source: ``csrc/entry_block.cu`` (CUDA
+C++, ``sm_90a``), built by ``_build.py`` and bound through ``ctypes``.
+
+What bounds it on an H100: at 256 frames of 256^2 each block is 192-400
+GFLOP of bf16 pointwise work (tensor cores) against one read of x and one
+pooled write (memory), so blocks 2, 3 and 12 are bound by operations and
+block 1 about evenly by both. The design is the simple form: the TPU kernel
+keeps every intermediate in VMEM, already rounded to bf16, so a sequence of
+launches that keeps them in device memory computes the same function at the
+same rounding points: a gather of x's even rows and columns, unit 0's
+depthwise, its pointwise GEMM (bias, ReLU), unit 1's depthwise and GEMM
+(bias), and the skip GEMM whose epilogue adds the skip bias and the 3x3/s2
+max of unit 1's output. The GEMMs are K1's (``csrc/bf16_gemm.cuh``), the
+depthwise K1's banded kernel with K3's tap order. Keeping ``mid`` and
+``outs`` on chip is later work. The TPU-only pieces are not carried over:
+the bordered ``W2`` storage, ``valid_w`` chaining, channels padded to 128
+lanes and stripe heights that divide H. The kernel takes and returns dense
+NHWC at any N, H and W (W up to 512).
+
+Rounding points match the TPU kernels: x is rounded to bf16 (also for fp32
+input); unit 0's depthwise reads ReLU(x) only with ``leading_relu0``; each
+depthwise takes fp32 products, sums each column over dy, then adds the
+column sums as ``(dx0 + dx1) + dx2`` and rounds to bf16; each pointwise
+accumulates in fp32 and adds its bias; ``mid = bf16(ReLU(pw0 + b0))``,
+``outs = bf16(pw1 + b1)``; the 3x3/s2 max pool's padding never wins; the
+skip is the bf16 x at even rows and columns times the bf16 ``skw``, in fp32;
+the output is ``pooled + (skip + skb)`` (the whole-image kernel's order; the
+striped kernel adds ``(pooled + skip) + skb``), cast to x's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ._build import load_library
+from .middle_block import PW_ROW_ALIGN
+
+
+def _depthwise_col_sums(a: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Zero-padded 3x3 depthwise on NHWC fp32 ``a`` with ``taps (9, C)``
+    (index ``dy*3+dx``), summed in K3's order: per dx over dy, then
+    ``(dx0 + dx1) + dx2``."""
+    _, H, W, _ = a.shape
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    cols = []
+    for dx in range(3):
+        s = None
+        for dy in range(3):
+            p = ap[:, dy : dy + H, dx : dx + W, :] * taps[dy * 3 + dx].float()
+            s = p if s is None else s + p
+        cols.append(s)
+    return (cols[0] + cols[1]) + cols[2]
+
+
+def _pointwise(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """NHWC fp32 ``a`` (bf16 values) @ the first K columns of ``w (N, ldk)``
+    as bf16 values, + ``b``, in fp32."""
+    K = a.shape[-1]
+    o = a.reshape(-1, K) @ w[:, :K].to(torch.bfloat16).float().t() + b.float()
+    return o.reshape(*a.shape[:-1], -1)
+
+
+def entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
+    """Plain PyTorch version of K3 on NHWC ``x``; same rounding points.
+
+    ``dw0 (9, Cin)``, ``dw1 (9, Cmid)`` fp32 taps; ``pw0 (Cmid, ldk0)``,
+    ``pw1 (Cout, ldk1)``, ``skw (Cout, ldk0)`` ``[out, in]`` with rows at
+    least as long as their input width (the first Cin or Cmid columns used,
+    as bf16 values); ``b0 (Cmid,)``, ``b1``, ``skb (Cout,)`` fp32.
+    Returns ``(N, (H+1)//2, (W+1)//2, Cout)`` in x's dtype.
+    """
+    xb = x.to(torch.bfloat16).float()
+    a = torch.relu(xb) if leading_relu0 else xb
+    a = _depthwise_col_sums(a, dw0).to(torch.bfloat16).float()
+    mid = torch.relu(_pointwise(a, pw0, b0)).to(torch.bfloat16).float()
+    a = _depthwise_col_sums(mid, dw1).to(torch.bfloat16).float()
+    outs = _pointwise(a, pw1, b1).to(torch.bfloat16).float()
+    pooled = F.max_pool2d(outs.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    skip = _pointwise(xb[:, ::2, ::2, :], skw, skb)
+    return (pooled + skip).to(x.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("entry_block")
+    lib.mdfd_entry_block.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+                                     + [ctypes.c_void_p])
+    lib.mdfd_entry_block.restype = ctypes.c_int
+    lib.mdfd_error_string.argtypes = [ctypes.c_int]
+    lib.mdfd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"entry_block: x must be a CPU or CUDA tensor, got {x.device}")
+    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"entry_block: x must be (N, H, W, Cin) bf16/fp32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("entry_block: x must be NHWC-contiguous and 16-byte aligned")
+    if pw0.dim() != 2 or pw1.dim() != 2:
+        raise ValueError("entry_block: pw0 and pw1 must be 2-D [out, in] matrices")
+    N, H, W, Cin = x.shape
+    (Cmid, ldk0), (Cout, ldk1) = pw0.shape, pw1.shape
+    for name, v in (("Cin", Cin), ("Cmid", Cmid), ("Cout", Cout), ("pw0's row length", ldk0),
+                    ("pw1's row length", ldk1)):
+        if v % 8:
+            raise ValueError(f"entry_block: {name} = {v} must be a multiple of 8 (16-byte rows)")
+    if ldk0 < Cin or ldk1 < Cmid:
+        raise ValueError(f"entry_block: pw0's rows ({ldk0}) must hold Cin = {Cin} and pw1's "
+                         f"({ldk1}) Cmid = {Cmid}")
+    if N * H * W >= 2**31:
+        raise ValueError("entry_block: N*H*W must fit in int32")
+    if W > 512:
+        raise ValueError(f"entry_block: W={W} > 512 (the staged depthwise band outgrows "
+                         "shared memory)")
+    for name, t, shape, dtype in (
+        ("dw0", dw0, (9, Cin), torch.float32),
+        ("b0", b0, (Cmid,), torch.float32),
+        ("dw1", dw1, (9, Cmid), torch.float32),
+        ("pw1", pw1, (Cout, ldk1), torch.bfloat16),
+        ("b1", b1, (Cout,), torch.float32),
+        ("skw", skw, (Cout, ldk0), torch.bfloat16),
+        ("skb", skb, (Cout,), torch.float32),
+        ("pw0", pw0, (Cmid, ldk0), torch.bfloat16),
+    ):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"entry_block: {name} must be {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"entry_block: {name} must be contiguous, 16-byte aligned "
+                             f"and on {x.device}")
+
+
+def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
+    """One stride-2 block on NHWC ``x (N, H, W, Cin)`` -> ``(N, (H+1)//2,
+    (W+1)//2, Cout)`` in x's dtype; operands as :func:`pack_entry_block`
+    returns them.
+
+    A CPU tensor takes :func:`entry_block_ref`. A CUDA tensor launches the
+    kernel or raises: there is no fallback. ``entry_block.launches`` counts
+    kernel launches (one per call: the block's six CUDA launches).
+    """
+    if x.device.type == "cpu":
+        return entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb,
+                               leading_relu0=leading_relu0)
+    _check(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb)
+    lib = _lib()
+    N, H, W, Cin = x.shape
+    (Cmid, ldk0), (Cout, ldk1) = pw0.shape, pw1.shape
+    Hp, Wp = (H + 1) // 2, (W + 1) // 2
+    out = torch.empty((N, Hp, Wp, Cout), dtype=x.dtype, device=x.device)
+    scratch = lambda rows, cols: torch.empty((rows, cols), dtype=torch.bfloat16, device=x.device)
+    M = N * H * W
+    a0, mid, a1, outs = scratch(M, ldk0), scratch(M, Cmid), scratch(M, ldk1), scratch(M, Cout)
+    xs = scratch(N * Hp * Wp, ldk0)
+    err = lib.mdfd_entry_block(
+        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, out, a0, mid, a1, outs,
+                                 xs)),
+        N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(x.dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"entry_block kernel failed: {lib.mdfd_error_string(err).decode()}")
+    entry_block.launches += 1
+    return out
+
+
+entry_block.launches = 0
+
+
+def _pad_rows(w: torch.Tensor) -> torch.Tensor:
+    """``[out, in]`` -> bf16 with rows zero-padded to a multiple of PW_ROW_ALIGN."""
+    return F.pad(w, (0, -w.shape[1] % PW_ROW_ALIGN)).to(torch.bfloat16).contiguous()
+
+
+def pack_entry_block(units, skip) -> tuple:
+    """Folded stride-2 two-unit block -> the kernel's operands.
+
+    ``units``: two ``(dw (C, 1, 3, 3), pw (Cout, Cin, 1, 1) [out, in], b)``;
+    ``skip``: ``(w (Cout, Cin, 1, 1), b)``. Returns ``dw0 (9, Cin)`` fp32,
+    ``pw0 (Cmid, ldk0)`` bf16, ``b0`` fp32, ``dw1 (9, Cmid)``, ``pw1 (Cout,
+    ldk1)``, ``b1``, ``skw (Cout, ldk0)`` bf16, ``skb`` fp32, all contiguous,
+    with bf16 rows zero-padded to ``PW_ROW_ALIGN`` elements (the JAX packer's
+    ``[in, out]`` matrices transposed, so the GEMMs read both operands
+    K-major).
+    """
+    (dw0, pw0, b0), (dw1, pw1, b1) = units
+    skw, skb = skip
+    taps = lambda dw: dw.float().reshape(dw.shape[0], 9).t().contiguous()
+    vec = lambda b: b.float().contiguous()
+    return (taps(dw0), _pad_rows(pw0[:, :, 0, 0]), vec(b0), taps(dw1), _pad_rows(pw1[:, :, 0, 0]),
+            vec(b1), _pad_rows(skw[:, :, 0, 0]), vec(skb))

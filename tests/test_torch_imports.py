@@ -12,6 +12,7 @@ import torch
 
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import middle_block_w8
 
@@ -32,6 +33,7 @@ import multimodal_deepfake_detection_tpu_torch.cli.serve
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block
 import multimodal_deepfake_detection_tpu_torch.ops.quant
 import multimodal_deepfake_detection_tpu_torch.models.quant
 loaded = sorted(m for m in sys.modules
@@ -58,7 +60,7 @@ def test_loader_raises_without_nvcc(monkeypatch):
         _build.load_library("middle_block")
 
 
-@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8"])
+@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8", "entry_block"])
 def test_int8_kernel_loaders_raise_without_nvcc(monkeypatch, name):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
@@ -82,9 +84,12 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 
 
 def _meta_args(name):
-    """Well-formed operands of an int8 kernel's wrapper, ``x`` on the meta device."""
+    """Well-formed operands of a kernel's wrapper, ``x`` on the meta device."""
     C = 16
     x = torch.empty((1, 2, 2, C), device="meta")
+    if name == "entry_block":
+        pw, b = torch.zeros((C, C), dtype=torch.bfloat16), torch.zeros(C)
+        return entry_block, (x, torch.zeros((9, C)), pw, b, torch.zeros((9, C)), pw, b, pw, b)
     if name == "middle_block_w8":
         return middle_block_w8, (x, torch.zeros((3, 9, C)), torch.zeros((3, C, 64), dtype=torch.int8),
                                  torch.ones((3, C)), torch.ones((3, C)), torch.ones(3),
@@ -93,10 +98,10 @@ def _meta_args(name):
                      torch.bfloat16)
 
 
-@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8"])
+@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8", "entry_block"])
 def test_int8_kernels_never_take_the_plain_version_off_the_cpu(name):
     fn, args = _meta_args(name)
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fn(*args)
+        fn(*args, **({"leading_relu0": True} if name == "entry_block" else {}))
     assert fn.launches == before

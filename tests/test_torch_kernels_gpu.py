@@ -4,13 +4,17 @@ Marked ``gpu``; skips where CUDA is absent. Run on a machine with an H100:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``. TF32 is
 off so the plain versions' fp32 matmuls are exact on bf16 operands. K1's
 bound is the CPU test's bf16 bound (rtol = atol = 1.6e-2) plus mean |d| <=
-1e-3; K2 and the int8 depthwise have exact integer paths and are held to
-bit equality.
+1e-3, and so is K3's; K2 and the int8 depthwise have exact integer paths and
+are held to bit equality.
 """
 import pytest
 import torch
 
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
+    entry_block,
+    entry_block_ref,
+)
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
     middle_block,
     middle_block_ref,
@@ -66,6 +70,36 @@ def test_middle_block_rejects_non_contiguous(cuda):
         middle_block(x, torch.zeros((3, 9, C), device=cuda),
                      torch.zeros((3, C, C), device=cuda, dtype=torch.bfloat16),
                      torch.zeros((3, C), device=cuda))
+
+
+@pytest.mark.parametrize(
+    "N,H,W,Cin,Cmid,Cout,dtype,lead",
+    [(15, 29, 29, 64, 128, 128, torch.bfloat16, False), (15, 4, 4, 728, 728, 1024, torch.bfloat16, True),
+     (3, 1, 1, 728, 728, 1024, torch.bfloat16, True), (3, 2, 2, 256, 728, 728, torch.bfloat16, True),
+     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True)],
+)
+def test_entry_block_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, lead):
+    """K3; the packed rows' padding past Cin / Cmid holds NaN, which the
+    kernel must never read."""
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
+
+    def rows(out, k):
+        w = torch.full((out, -(-k // 32) * 32), float("nan"))
+        w[:, :k] = torch.randn((out, k), generator=g) / k ** 0.5
+        return w.to(cuda, torch.bfloat16)
+
+    vec = lambda *shape, s: (torch.randn(shape, generator=g) * s).to(cuda)
+    x = torch.randn((N, H, W, Cin), generator=g).to(cuda, dtype)
+    ops = (x, vec(9, Cin, s=0.3), rows(Cmid, Cin), vec(Cmid, s=0.1), vec(9, Cmid, s=0.3),
+           rows(Cout, Cmid), vec(Cout, s=0.1), rows(Cout, Cin), vec(Cout, s=0.1))
+    before = entry_block.launches
+    got = entry_block(*ops, leading_relu0=lead)
+    torch.cuda.synchronize()
+    assert entry_block.launches == before + 1
+    ref = entry_block_ref(*ops, leading_relu0=lead)
+    assert got.dtype == dtype and got.shape == (N, (H + 1) // 2, (W + 1) // 2, Cout)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2, atol=1.6e-2)
+    assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
 
 
 @pytest.mark.parametrize(

@@ -173,9 +173,12 @@ def test_serve_config_keeps_jax_names_and_defaults():
     from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, parse_config
 
     jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    # the port's own flags (the JAX route to K3 is the MDFD_ENTRY_FUSE_H env gate)
+    port_only = {"device", "fuse_entry"}
     for f in dataclasses.fields(Config):
-        if f.name != "device":
+        if f.name not in port_only:
             assert f.default == jax_defaults[f.name], f.name
+    assert port_only.isdisjoint(jax_defaults)
     cfg = parse_config(["--buckets", "4,8", "--mask_padding", "false", "--batch_size", "3",
                         "--device", "cpu"])
     assert (cfg.buckets, cfg.mask_padding, cfg.batch_size, cfg.device) == ((4, 8), False, 3, "cpu")
