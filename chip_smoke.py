@@ -8,29 +8,33 @@ raises and exits non-zero:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: compile every kernel of the serving paths from csrc/ with nvcc,
-   one process per source, all at once: K1 (middle_block.cu), K2
-   (middle_block_w8.cu), the int8 depthwise (dw_w8a8.cu) and K3
-   (entry_block.cu);
+   one process per source, all at once: K1 (middle_block.cu, both tap
+   orders), K2 (middle_block_w8.cu), the int8 depthwise (dw_w8a8.cu), K3
+   (entry_block.cu), K4 (entry_pair.cu) and K5 (sepconv_unit.cu);
 3. kernels, TF32 off: each kernel against its plain PyTorch version at the
-   shapes serving gives it, and at edge shapes;
+   shapes serving gives it, and at edge shapes; K1 in both tap orders, K4
+   with each JAX entry point's switches;
 4. slice: a seeded full-width XceptionLSTMV + ArcFace bundle in the JAX
    format and a few uint8 clips at 256^2, scored through the port's CLI
    (``cli/serve.py --engine visual``, bf16 on CUDA), on the fp path, with
-   ``--quantize w8a8-pallas`` and with ``--fuse_entry true``, each with the
+   ``--quantize w8a8-pallas``, with ``--fuse_entry true`` and with
+   ``--middle_taps bf16 --entry_pair true --fuse_exit true``, each with the
    launch counters set to 0 just before and read just after: 8 K1 launches
    per backbone call on the fp path; 8 K2 and 10 int8-depthwise launches,
-   and no K1, on the w8a8 path; 8 K1 and 4 K3 on the fused-entry path. Then
-   every mode through ``VisualScorer``, counted the same way (w8a8-hybrid: 8
-   K1 and 10 int8-depthwise launches per backbone call; w8a8: 34
-   int8-depthwise), against the plain path on the same calibrated tree and
-   against the plain fp32 path; per quant mode two controls, wrong trees put
-   in the program's place, and on the fused-entry path one, a wrong K3
-   operand, each of which must fail its bars;
+   and no K1, on the w8a8 path; 8 K1 and 4 K3 on the fused-entry path; 8
+   bf16-tap K1, 4 K4 and 2 K5 on the routes' path. Then every mode and
+   route through ``VisualScorer``, counted the same way (w8a8-hybrid: 8 K1
+   and 10 int8-depthwise launches per backbone call; w8a8: 34
+   int8-depthwise; each route alone), against the plain path on the same
+   calibrated tree and against the plain fp32 path; per quant mode two
+   controls, wrong trees put in the program's place, and on each kernel
+   route one, a wrong operand, each of which must fail its bars;
 5. times on the card (CUDA events after warmup): each kernel against its
    plain version and against PyTorch's own calls for the same function (K3
-   per stride-2 block of 256 frames), and the slice's frames/s, fp (plain,
-   K1, K1 + K3) and w8a8, in turns; then the device busy share and the top
-   kernels of one scored batch per kernel path (``torch.profiler``).
+   per stride-2 block, K4 per stride-2 pair, K5 per exit conv, of 256
+   frames), and the slice's frames/s, fp (plain, K1, each route) and w8a8,
+   in turns; then the device busy share and the top kernels of one scored
+   batch per kernel path (``torch.profiler``).
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record; the last line is
@@ -110,9 +114,54 @@ K3_SHAPES = K3_BLOCKS + (
     (4, 13, 21, 40, 16, 24, False, "bfloat16"),
     (5, 15, 15, 128, 256, 256, True, "float32"),
 )
+# K4: the pairs of the four stride-2 blocks of 256 frames at 256^2 (K3's
+# blocks), then K3's edge shapes with a 3x3 one, each with the switches of
+# every JAX entry point (col_sums, mid_fp32): entry_pair_pallas and stream2
+# with dx_roll (True, False), the stream kernel (False, True), stream2
+# without dx_roll (False, False).
+K4_SHAPES = K3_BLOCKS + (
+    (15, 29, 29, 64, 128, 128, False, "bfloat16"),
+    (3, 1, 1, 728, 728, 1024, True, "bfloat16"),
+    (3, 2, 2, 728, 728, 1024, True, "bfloat16"),
+    (5, 3, 3, 256, 728, 728, True, "bfloat16"),
+    (4, 13, 21, 40, 16, 24, False, "bfloat16"),
+    (5, 15, 15, 128, 256, 256, True, "float32"),
+)
+K4_SWITCHES = ((True, False), (False, True), (False, False))
+# K5: (N, H=W, Cin, Cout, leading ReLU, trailing ReLU, dtype name). conv3 and
+# conv4 of 256 frames at 256^2 (the route's switches), then the exit of 32^2
+# and 64^2 inputs, every ReLU combination at C = 40 (rows padded to 64), and
+# fp32 I/O.
+K5_CONVS = (
+    (256, 8, 1024, 1536, False, True, "bfloat16"),
+    (256, 8, 1536, 2048, False, True, "bfloat16"),
+)
+K5_SHAPES = K5_CONVS + (
+    (15, 1, 1536, 2048, False, True, "bfloat16"),
+    (15, 2, 1024, 1536, False, True, "bfloat16"),
+    (4, 9, 40, 16, False, False, "bfloat16"),
+    (4, 9, 40, 16, True, False, "bfloat16"),
+    (4, 9, 40, 16, True, True, "bfloat16"),
+    (3, 2, 1024, 1536, False, True, "float32"),
+)
 CLIP_LENGTHS = (8, 5, 3, 8, 5)  # odd count, odd lengths; batch_size 4 -> 2 backbone calls
 BATCH_SIZE = 4
-KERNELS = ("middle_block", "middle_block_w8", "dw_w8a8", "entry_block")
+SOURCES_BUILT = ("middle_block", "middle_block_w8", "dw_w8a8", "entry_block", "entry_pair",
+                 "sepconv_unit")
+KERNELS = ("middle_block", "middle_block_bf16taps", "middle_block_w8", "dw_w8a8", "entry_block",
+           "entry_pair", "sepconv_unit")
+ROUTES = {  # VisualScorer keyword, CLI flags, launches per backbone call, the stage it ends
+    "middle_taps": ({"middle_taps": "bf16"}, ["--middle_taps", "bf16"], dict(k1b=8), "block11"),
+    "entry_pair": ({"entry_pair": True}, ["--entry_pair", "true"], dict(k1=8, k4=4), "block12"),
+    "fuse_exit": ({"fuse_exit": True}, ["--fuse_exit", "true"], dict(k1=8, k5=2), "exit"),
+}
+# A random model's features wash out faults in the middle of the network
+# (PERF.md §6), so each route is also held at the output of its last kernel's
+# stage (``upto=``), per frame, against the plain fp32 path: 1 - cos <= 1e-3.
+# CPU rehearsal at fp32 (plain versions): sound <= 1.9e-8; the controls'
+# wrong operands 6.3e-3 (middle taps) and 7.4e-3 (pair), and conv4's bias
+# dropped fails the feature bars too (1 - cos 0.65).
+STAGE_COS_MIN = 1 - 1e-3
 
 
 def say(msg: str) -> None:
@@ -137,10 +186,10 @@ def phase_build():
     from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(*KERNELS)
-    for name in KERNELS:
+    _build.build(*SOURCES_BUILT)
+    for name in SOURCES_BUILT:
         _build.load_library(name)
-    say(f"build: {', '.join(n + '.cu' for n in KERNELS)} ready in "
+    say(f"build: {', '.join(n + '.cu' for n in SOURCES_BUILT)} ready in "
         f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR.name}/, nvcc "
         f"{' '.join(_build.NVCC_FLAGS[:2])})")
 
@@ -218,6 +267,17 @@ def k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed):
             rows(Cout, Cmid), vec(Cout, s=0.1), rows(Cout, Cin), vec(Cout, s=0.1))
 
 
+def k5_operands(torch, N, H, Cin, Cout, dtype, seed):
+    """Random K5 operands, the packed rows padded to 32 elements with NaN."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.full((Cout, -(-Cin // 32) * 32), float("nan"))
+    w[:, :Cin] = torch.randn((Cout, Cin), generator=g) / Cin ** 0.5
+    gx = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((N, H, H, Cin), generator=gx, device="cuda").to(getattr(torch, dtype))
+    return (x, (torch.randn((9, Cin), generator=g) * 0.3).cuda(), w.to("cuda", torch.bfloat16),
+            (torch.randn(Cout, generator=g) * 0.1).cuda())
+
+
 def phase_kernels(torch) -> dict:
     """Every kernel against its plain version; returns the worst max |d| of each."""
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
@@ -229,18 +289,28 @@ def phase_kernels(torch) -> dict:
         middle_block,
         middle_block_ref,
     )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import (
+        entry_pair,
+        entry_pair_ref,
+    )
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
         middle_block_w8,
         middle_block_w8_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import (
+        sepconv_unit,
+        sepconv_unit_ref,
     )
 
     worst = dict.fromkeys(KERNELS, 0.0)
     for i, (N, H, C, dtype, ldk) in enumerate(K1_SHAPES):
         ops = k1_operands(torch, N, H, C, dtype, ldk, seed=i)
-        got = middle_block(*ops)
-        torch.cuda.synchronize()
-        worst["middle_block"] = max(worst["middle_block"], compare(
-            torch, f"K1 ({N},{H},{H},{C}) {dtype} ldk={ldk}", got, middle_block_ref(*ops)))
+        for taps, name in (("fp32", "middle_block"), ("bf16", "middle_block_bf16taps")):
+            got = middle_block(*ops, taps=taps)
+            torch.cuda.synchronize()
+            worst[name] = max(worst[name], compare(
+                torch, f"K1 {taps} taps ({N},{H},{H},{C}) {dtype} ldk={ldk}", got,
+                middle_block_ref(*ops, taps=taps)))
     for i, (N, H, C, dtype) in enumerate(K2_SHAPES):
         ops = k2_operands(torch, N, H, C, dtype, seed=100 + i)
         got = middle_block_w8(*ops)
@@ -270,6 +340,25 @@ def phase_kernels(torch) -> dict:
             torch, f"K3 ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} {dtype} relu={lead}", got,
             entry_block_ref(*ops, leading_relu0=lead)))
         del ops, got
+    for i, (N, H, W, Cin, Cmid, Cout, lead, dtype) in enumerate(K4_SHAPES):
+        ops = k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed=600 + i)[:7]
+        for col_sums, mid_fp32 in K4_SWITCHES:
+            kw = dict(leading_relu0=lead, col_sums=col_sums, mid_fp32=mid_fp32)
+            got = entry_pair(*ops, **kw)
+            torch.cuda.synchronize()
+            worst["entry_pair"] = max(worst["entry_pair"], compare(
+                torch, f"K4 ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} {dtype} relu={lead} "
+                f"col_sums={col_sums} mid_fp32={mid_fp32}", got, entry_pair_ref(*ops, **kw)))
+            del got
+        del ops
+    for i, (N, H, Cin, Cout, lead, trail, dtype) in enumerate(K5_SHAPES):
+        ops = k5_operands(torch, N, H, Cin, Cout, dtype, seed=700 + i)
+        kw = dict(leading_relu=lead, trailing_relu=trail)
+        got = sepconv_unit(*ops, **kw)
+        torch.cuda.synchronize()
+        worst["sepconv_unit"] = max(worst["sepconv_unit"], compare(
+            torch, f"K5 ({N},{H},{H},{Cin})->{Cout} {dtype} relu in/out={lead}/{trail}", got,
+            sepconv_unit_ref(*ops, **kw)))
     return worst
 
 
@@ -300,13 +389,19 @@ def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None
 def counters():
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block
-    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import entry_pair
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
+        middle_block,
+        middle_block_bf16taps,
+    )
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
         middle_block_w8,
     )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import sepconv_unit
 
-    return {"middle_block": middle_block, "middle_block_w8": middle_block_w8, "dw_w8a8": dw_w8a8,
-            "entry_block": entry_block}
+    return {"middle_block": middle_block, "middle_block_bf16taps": middle_block_bf16taps,
+            "middle_block_w8": middle_block_w8, "dw_w8a8": dw_w8a8, "entry_block": entry_block,
+            "entry_pair": entry_pair, "sepconv_unit": sepconv_unit}
 
 
 def counted(torch, label, run, expected: dict):
@@ -324,9 +419,10 @@ def counted(torch, label, run, expected: dict):
     return out
 
 
-def per_call(calls: int, k1=0, k2=0, dw=0, k3=0) -> dict:
-    return {"middle_block": k1 * calls, "middle_block_w8": k2 * calls, "dw_w8a8": dw * calls,
-            "entry_block": k3 * calls}
+def per_call(calls: int, k1=0, k1b=0, k2=0, dw=0, k3=0, k4=0, k5=0) -> dict:
+    return {"middle_block": k1 * calls, "middle_block_bf16taps": k1b * calls,
+            "middle_block_w8": k2 * calls, "dw_w8a8": dw * calls, "entry_block": k3 * calls,
+            "entry_pair": k4 * calls, "sepconv_unit": k5 * calls}
 
 
 def run_cli(torch, workdir, bundle, clip_dir, label, flags, expected):
@@ -415,8 +511,9 @@ def phase_slice(torch, workdir: str) -> dict:
     # each mode through VisualScorer (score + frame_features: 2 backbone
     # calls per batch), counted, against the plain fp32 path (no kernel) and
     # the plain quantized path on the kernel path's calibrated tree
-    ref = outputs(torch, VisualScorer.from_bundle(
-        bundle, compute_dtype=torch.float32, use_kernels=False, **kw), batches)
+    plain32 = VisualScorer.from_bundle(bundle, compute_dtype=torch.float32, use_kernels=False,
+                                       **kw)
+    ref = outputs(torch, plain32, batches)
     got = counted(torch, "slice fp (VisualScorer)",
                   lambda: outputs(torch, VisualScorer.from_bundle(bundle, **kw), batches),
                   per_call(2 * calls, k1=8))
@@ -441,6 +538,7 @@ def phase_slice(torch, workdir: str) -> dict:
          outputs(torch, fused, batches), ref, (FEATURE_COS_MIN, SCORE_TOL), control=True)
     for b, skw in zip(k3_blocks, sound_skw):
         b.k3_skw = skw
+    launches.update(slice_routes(torch, workdir, bundle, clip_dir, batches, plain32, ref, kw))
     bf16_fold = QuantizedXception.from_folded(
         fold_xception_bn(load_visual_bundle(bundle)[0].backbone, torch.bfloat16)).to("cuda")
     for mode, per_backbone in (("w8a8-pallas", dict(k2=8, dw=10)),
@@ -471,6 +569,98 @@ def phase_slice(torch, workdir: str) -> dict:
              outputs(torch, kern, batches), ref, QUANT_FP32_BARS, control=True)
         kern.qbackbone = sound
     return launches
+
+
+class WrongOperand:
+    """Puts a wrong operand of a route's kernel into ``scorer``'s folded
+    backbone for the ``with`` block, then the sound one back:
+    - middle_taps: the last rep's taps of every middle block 4x too large;
+    - entry_pair: unit 1's pointwise weight of every stride-2 block 4x too
+      large (the pair's output, and so its share of the block, 4x);
+    - fuse_exit: conv4's bias dropped (an epilogue that skips it)."""
+
+    WHAT = {"middle_taps": "last-rep taps x4", "entry_pair": "pw1 x4",
+            "fuse_exit": "conv4 bias dropped"}
+
+    def __init__(self, torch, scorer, route: str):
+        fb = scorer.folded_backbone
+        if route == "middle_taps":
+            sites = [(b, "k1_dw") for b in fb.blocks if b.is_middle]
+            wrong = lambda t: torch.cat([t[:2], 4 * t[2:]])
+        elif route == "entry_pair":
+            sites = [(b, "k3_pw1") for b in fb.blocks if b.is_entry]
+            wrong = lambda t: 4 * t
+        else:
+            sites = [(fb.conv4, "k5_b")]
+            wrong = torch.zeros_like
+        self.sites, self.wrong, self.what = sites, wrong, self.WHAT[route]
+
+    def __enter__(self):
+        self.sound = [getattr(m, name) for m, name in self.sites]
+        for (m, name), t in zip(self.sites, self.sound):
+            setattr(m, name, self.wrong(t).contiguous())
+        return self.what
+
+    def __exit__(self, *exc):
+        for (m, name), t in zip(self.sites, self.sound):
+            setattr(m, name, t)
+
+
+def stage_held(torch, label, scorer, plain, frames, upto, *, control: bool = False) -> None:
+    """``scorer``'s backbone up to ``upto`` against ``plain``'s (the plain
+    fp32 path) on the uint8 ``frames``: min per-frame cosine against
+    STAGE_COS_MIN. A control must fail it."""
+    def stage(sc):
+        with torch.inference_mode():
+            h = sc.folded_backbone(sc._frames_to_x(frames), use_kernels=sc.use_kernels,
+                                   upto=upto, **sc.routes)
+        return h.flatten(1).double()
+
+    cos = torch.nn.functional.cosine_similarity(stage(scorer), stage(plain), dim=-1).min().item()
+    ok = cos >= STAGE_COS_MIN
+    verdict = ("; control: fails, as it must" if not ok else "; control: PASSES") if control else ""
+    say(f"{label}: {upto} output per frame 1 - cos max {1 - cos:.3e} "
+        f"(<= {1 - STAGE_COS_MIN:.1e}){verdict}")
+    if ok == control:
+        raise AssertionError(f"{label}: " + ("the control passes the bar" if control
+                                             else "disagreement"))
+
+
+def slice_routes(torch, workdir, bundle, clip_dir, batches, plain, ref, kw) -> dict:
+    """The routes' path: the CLI with every route at once, counted; the same
+    through ``VisualScorer``; then each route alone, counted, held against
+    the plain fp32 scorer ``plain`` (``ref``: its outputs) end to end and at
+    its stage, with its control. Returns the CLI's counts of the routes'
+    kernels."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    calls = len(batches)
+    per_backbone = dict(k1b=8, k4=4, k5=2)
+    flags = [f for _, cli_flags, _, _ in ROUTES.values() for f in cli_flags]
+    expected = per_call(calls, **per_backbone)
+    cli_scores = run_cli(torch, workdir, bundle, clip_dir, "routes", flags, expected)
+    every = {k: v for route, _, _, _ in ROUTES.values() for k, v in route.items()}
+    scorer = VisualScorer.from_bundle(bundle, **every, **kw)
+    got = counted(torch, "slice routes (VisualScorer)", lambda: outputs(torch, scorer, batches),
+                  per_call(2 * calls, **per_backbone))
+    held(torch, "slice routes vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
+    if np.abs(got[0] - cli_scores).max() > 1e-4:
+        raise AssertionError("the CLI's routes scores differ from VisualScorer's")
+    frames = batches[0][0]
+    for name, (route, _, per_backbone, upto) in ROUTES.items():
+        scorer = VisualScorer.from_bundle(bundle, **route, **kw)
+        got = counted(torch, f"slice {name} (VisualScorer)",
+                      lambda: outputs(torch, scorer, batches), per_call(2 * calls, **per_backbone))
+        held(torch, f"slice {name} vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
+        stage_held(torch, f"slice {name} vs plain fp32", scorer, plain, frames, upto)
+        with WrongOperand(torch, scorer, name) as what:
+            stage_held(torch, f"control {name}, {what}, vs plain fp32", scorer, plain, frames,
+                       upto, control=True)
+            if name == "fuse_exit":  # the exit's fault reaches the features
+                held(torch, f"control {name}, {what}, vs plain fp32",
+                     outputs(torch, scorer, batches), ref, (FEATURE_COS_MIN, SCORE_TOL),
+                     control=True)
+    return {k: expected[k] for k in ("middle_block_bf16taps", "entry_pair", "sepconv_unit")}
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -558,6 +748,17 @@ def phase_times(torch, smi: str, workdir: str):
     say(f"time K1 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
         f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
         f"cuDNN + cuBLAS {ms['library']:.4f} ms; runs {runs} [{smi}]")
+    # the bf16-tap K1 per middle block, beside the fp32-tap K1 in the same turns
+    ms, runs = in_turns(torch, {
+        "plain": lambda: middle_block_ref(x, dw, pw, b, taps="bf16"),
+        "kernel": lambda: middle_block(x, dw, pw, b, taps="bf16"),
+        "fp32 taps": lambda: middle_block(x, dw, pw, b),
+        "library": lambda: library_block(torch, x, dw, pw_t, b),
+    }, 10)
+    times["middle_block_bf16taps"] = (ms, times["middle_block"][1])
+    say(f"time K1 bf16 taps ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms (fp32 taps "
+        f"{ms['fp32 taps']:.4f} ms), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS "
+        f"{ms['library']:.4f} ms; runs {runs} [{smi}]")
 
     ops_k2 = k2_operands(torch, N, H, C, "bfloat16", seed=98)
     x2, dw2, pw_q, s_w, s_in, s_dq, b2 = ops_k2
@@ -596,6 +797,10 @@ def phase_times(torch, smi: str, workdir: str):
     bundle = os.path.join(workdir, "visual.npz")
     fused = VisualScorer.from_bundle(bundle, device="cuda", fuse_entry=True)
     times["entry_block"] = time_k3(torch, fused, smi)
+    routes = VisualScorer.from_bundle(bundle, device="cuda", middle_taps="bf16", entry_pair=True,
+                                      fuse_exit=True)
+    times["entry_pair"] = time_k4(torch, routes, smi)
+    times["sepconv_unit"] = time_k5(torch, routes, smi)
 
     B, T, S = 32, 8, 256
     frames = np.random.default_rng(1).integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
@@ -603,6 +808,10 @@ def phase_times(torch, smi: str, workdir: str):
         "fp plain": VisualScorer.from_bundle(bundle, device="cuda", use_kernels=False),
         "fp K1": VisualScorer.from_bundle(bundle, device="cuda"),
         "fp K1+K3": fused,
+        "fp K1 bf16 taps": VisualScorer.from_bundle(bundle, device="cuda", middle_taps="bf16"),
+        "fp K1+K4": VisualScorer.from_bundle(bundle, device="cuda", entry_pair=True),
+        "fp K1+K5": VisualScorer.from_bundle(bundle, device="cuda", fuse_exit=True),
+        "fp routes (K1 bf16 taps+K4+K5)": routes,
         "w8a8-pallas": VisualScorer.from_bundle(bundle, device="cuda", quantize="w8a8-pallas"),
     }
     for sc_ in scorers.values():
@@ -617,7 +826,8 @@ def phase_times(torch, smi: str, workdir: str):
         ms = float(np.mean(runs))
         say(f"time slice B={B} T={T} {S}^2 bf16 {name}: {ms:.2f} ms/call, "
             f"{B * T / ms * 1e3:.1f} frames/s; runs {runs} [{smi}]")
-    profile_calls(torch, {k: v for k, v in scorers.items() if k != "fp plain"}, frames, smi)
+    profiled = ("fp K1", "fp K1+K3", "fp routes (K1 bf16 taps+K4+K5)", "w8a8-pallas")
+    profile_calls(torch, {k: scorers[k] for k in profiled}, frames, smi)
     return times
 
 
@@ -662,6 +872,100 @@ def time_k3(torch, scorer, smi: str):
     return total, (sum(bound.values()), by)
 
 
+def time_k4(torch, scorer, smi: str):
+    """K4 per stride-2 pair of the scorer's bf16 backbone, on random input of
+    256 frames at 256^2: the kernel with the route's switches (those of
+    ``entry_pair_pallas``) and with the stream kernels' (dy-major with an fp32
+    mid; dy-major), its plain version, and the library yardstick, the same
+    folded pair through cuDNN depthwise and cuBLAS 1x1 (the plain path's
+    units, ReLUs between). Returns the times and the bound, each summed over
+    the four pairs."""
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import (
+        entry_pair,
+        entry_pair_ref,
+    )
+
+    blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
+    total = dict.fromkeys(("kernel", "stream", "stream2", "plain", "library"), 0.0)
+    bound = {"bytes": 0.0, "operations": 0.0}
+    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, K3_BLOCKS)):
+        assert block.start_with_relu == lead and block.k3_pw0.shape[0] == Cmid
+        gx = torch.Generator("cuda").manual_seed(800 + k)
+        x = torch.randn((N, H, W, Cin), generator=gx, device="cuda").to(torch.bfloat16)
+        ops4 = block.k3_operands()[:6]
+        u0, u1 = block.units
+        ms, runs = in_turns(torch, {
+            "plain": lambda: entry_pair_ref(x, *ops4, leading_relu0=lead),
+            "kernel": lambda: entry_pair(x, *ops4, leading_relu0=lead),
+            "stream": lambda: entry_pair(x, *ops4, leading_relu0=lead, col_sums=False,
+                                         mid_fp32=True),
+            "stream2": lambda: entry_pair(x, *ops4, leading_relu0=lead, col_sums=False),
+            "library": lambda: u1(torch.relu(u0(torch.relu(x) if lead else x))),
+        }, 5)
+        for name in total:
+            total[name] += ms[name]
+        M = N * H * W
+        ops = 2 * M * (Cin * Cmid + Cmid * Cout)
+        nbytes = 2 * (x.numel() + M * Cout + Cmid * Cin + Cout * Cmid)
+        b_ms, by = bound_ms(nbytes, ops, PEAK_BF16)
+        bound[by] += b_ms
+        say(f"time K4 pair of block {(1, 2, 3, 12)[k]} ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} "
+            f"bf16: kernel {ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the "
+            f"pointwise; stream switches {ms['stream']:.4f} ms, stream2 without dx_roll "
+            f"{ms['stream2']:.4f} ms), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS pair "
+            f"{ms['library']:.4f} ms, bound {b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
+        del x
+    by = max(bound, key=bound.get)
+    say(f"time K4, 4 pairs of 256 frames: kernel {total['kernel']:.4f} ms (stream switches "
+        f"{total['stream']:.4f} ms, stream2 without dx_roll {total['stream2']:.4f} ms), plain "
+        f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
+        f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
+    return total, (sum(bound.values()), by)
+
+
+def time_k5(torch, scorer, smi: str):
+    """K5 per exit conv (conv3, conv4) of the scorer's bf16 backbone with the
+    route's switches, on random input of 256 frames at 8^2: the kernel, its
+    plain version, and the library yardstick, the folded unit through cuDNN
+    depthwise and cuBLAS 1x1 and a ReLU. Returns the times and the bound,
+    each summed over the two convs."""
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import (
+        sepconv_unit,
+        sepconv_unit_ref,
+    )
+
+    fb = scorer.folded_backbone
+    total = dict.fromkeys(("kernel", "plain", "library"), 0.0)
+    bound = {"bytes": 0.0, "operations": 0.0}
+    for k, (conv, (N, H, Cin, Cout, lead, trail, _)) in enumerate(zip((fb.conv3, fb.conv4),
+                                                                       K5_CONVS)):
+        assert conv.k5_pw.shape[0] == Cout and conv.k5_dw.shape[1] == Cin
+        gx = torch.Generator("cuda").manual_seed(900 + k)
+        x = torch.randn((N, H, H, Cin), generator=gx, device="cuda").to(torch.bfloat16)
+        ops5 = (conv.k5_dw, conv.k5_pw, conv.k5_b)
+        kw = dict(leading_relu=lead, trailing_relu=trail)
+        ms, runs = in_turns(torch, {
+            "plain": lambda: sepconv_unit_ref(x, *ops5, **kw),
+            "kernel": lambda: sepconv_unit(x, *ops5, **kw),
+            "library": lambda: torch.relu(conv(x)),
+        }, 20)
+        for name in total:
+            total[name] += ms[name]
+        M = N * H * H
+        ops = 2 * M * Cin * Cout
+        b_ms, by = bound_ms(2 * (x.numel() + M * Cout + Cout * Cin), ops, PEAK_BF16)
+        bound[by] += b_ms
+        say(f"time K5 conv{3 + k} ({N},{H},{H},{Cin})->{Cout} bf16: kernel {ms['kernel']:.4f} ms "
+            f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain "
+            f"{ms['plain']:.4f} ms, cuDNN + cuBLAS unit {ms['library']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
+    by = max(bound, key=bound.get)
+    say(f"time K5, conv3 + conv4 of 256 frames: kernel {total['kernel']:.4f} ms, plain "
+        f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
+        f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
+    return total, (sum(bound.values()), by)
+
+
 def profile_calls(torch, scorers: dict, frames, smi: str, top: int = 15) -> None:
     """One ``score()`` call of each scorer under ``torch.profiler``: device
     busy time against the host clock, and the kernels that take the most."""
@@ -685,7 +989,12 @@ def profile_calls(torch, scorers: dict, frames, smi: str, top: int = 15) -> None
 
 SOURCES = {
     "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
-                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80"),
+                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80; with fp32 "
+                     "taps also sepconv_block.py:78 (v1) and sepconv_block.py:196 (v2, "
+                     "precise=True)"),
+    "middle_block_bf16taps": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
+                              "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_block.py:196 "
+                              "(v2, precise=False)"),
     "middle_block_w8": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block_w8.cu",
                         "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:190"),
     # no TPU kernel: the JAX package's XLA op
@@ -694,6 +1003,12 @@ SOURCES = {
     "entry_block": ("multimodal_deepfake_detection_tpu_torch/csrc/entry_block.cu",
                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry.py:291 and "
                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry_striped.py:180"),
+    "entry_pair": ("multimodal_deepfake_detection_tpu_torch/csrc/entry_pair.cu",
+                   "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_entry.py:123, "
+                   "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_stream.py:117 and "
+                   "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_stream2.py:177"),
+    "sepconv_unit": ("multimodal_deepfake_detection_tpu_torch/csrc/sepconv_unit.cu",
+                     "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_unit.py:91"),
 }
 
 

@@ -8,10 +8,12 @@ visual``: scores every ``.npy`` uint8 frame stack ``(T, H, W, 3)`` under
         --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
 
 Flags are the JAX Config's visual fields, with the same names, defaults and
-``--field value`` syntax, plus ``--device`` and ``--fuse_entry``.
+``--field value`` syntax, plus ``--device`` and the fp path's kernel routes.
 ``--quantize w8a8|w8a8-hybrid|w8a8-pallas`` serves the int8 backbone,
-calibrated on the first batch; ``--fuse_entry true`` runs the fp path's
-stride-2 blocks through the K3 kernel.
+calibrated on the first batch. On the fp path: ``--fuse_entry true`` runs
+the stride-2 blocks through the K3 kernel, ``--entry_pair true`` their
+separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap order;
+``--fuse_exit true`` runs the exit sepconvs through K5.
 Video decoding, the other engines, AOT artifacts and the device mesh are not
 ported yet.
 """
@@ -46,6 +48,14 @@ class Config:
     quantize: str = ""
     # fp path only: the 4 stride-2 blocks through the K3 kernel as well
     fuse_entry: bool = False
+    # fp path only: the 4 stride-2 blocks' separable pairs through K4 (not
+    # with fuse_entry)
+    entry_pair: bool = False
+    # fp path only: K1's tap order, "fp32" or "bf16" (middle_block_pallas_v2's
+    # precise=False)
+    middle_taps: str = "fp32"
+    # fp path only: the exit sepconvs conv3 and conv4 through K5
+    fuse_exit: bool = False
     device: str = "cuda"
 
 
@@ -108,7 +118,8 @@ def build_engine(cfg: Config):
     return VisualScorer.from_bundle(
         cfg.ckpt_path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None,
         mask_padding=cfg.mask_padding, compute_dtype=parse_dtype(cfg.compute_dtype),
-        quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, device=cfg.device,
+        quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
+        middle_taps=cfg.middle_taps, fuse_exit=cfg.fuse_exit, device=cfg.device,
     )
 
 

@@ -1,5 +1,6 @@
-// The bf16 pointwise GEMM shared by K1 (middle_block.cu) and K3
-// (entry_block.cu) for Hopper, sm_90a:
+// The bf16 pointwise GEMM shared by K1 (middle_block.cu), K3
+// (entry_block.cu), K4 (entry_pair.cu) and K5 (sepconv_unit.cu) for Hopper,
+// sm_90a:
 //     out[M, N] = epilogue(A[M, K] @ Bt[N, K]^T)
 // bf16 operands, fp32 accumulation, Hopper's warpgroup MMA. A CTA is three
 // warpgroups: one thread of the first issues TMA loads, the other two
@@ -123,6 +124,38 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // warpgroups are 128-aligned
   epi(d, row, n0, lane, As);
 }
+
+// acc + bias [-> ReLU] -> out[M][N] in OutT (bf16 or fp32), N % 8 == 0:
+// K3's and K4's pair GEMMs, K5's unit GEMM.
+template <typename OutT, bool RELU>
+struct BiasEpilogue {
+  const float* bias;
+  OutT* out;
+  int M, N;
+  static constexpr bool kStaged = false;
+
+  __device__ __forceinline__ void operator()(const float* d, int row, int n0, int lane,
+                                             const bf16*) const {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + (lane & 3) * 2;  // N % 8 == 0: n < N implies n + 1 < N
+      if (n >= N) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = row + half * 8;
+        if (m >= M) continue;
+        float v0 = d[4 * j + 2 * half] + bv.x;
+        float v1 = d[4 * j + 2 * half + 1] + bv.y;
+        if (RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        store2(out + static_cast<size_t>(m) * N + n, v0, v1);
+      }
+    }
+  }
+};
 
 // Tensor map of a GEMM operand: the first K columns of a row-major
 // [rows][ld] bf16 matrix, in boxes of 64 columns x box_rows rows.

@@ -21,13 +21,14 @@
 // there, so this first design keeps them in device memory instead: six
 // launches per block,
 //   gather_even_kernel        x at even rows and columns -> bf16 skip operand
-//   dw3x3_relu_kernel (x2)    sm90_common.cuh, with K3's column-sum order,
-//                             ReLU on x only for blocks that lead with one
-//   gemm::gemm_kernel (x3)    bf16_gemm.cuh (K1's TMA/wgmma GEMM) with
-//                             three epilogues: bias + ReLU -> mid; bias ->
-//                             outs; and for the skip GEMM bias + the 3x3/s2
-//                             max of outs -> out, so pool, skip and add are
-//                             one kernel.
+//   run_pair (4 launches)     sepconv_pair.cuh, K4's pair: two depthwise
+//                             (sm90_common.cuh, K3's column-sum order, ReLU
+//                             on x only for blocks that lead with one) and
+//                             two GEMMs (bf16_gemm.cuh, K1's TMA/wgmma GEMM:
+//                             bias + ReLU -> mid; bias -> outs)
+//   gemm::gemm_kernel         the skip GEMM, whose epilogue adds the bias
+//                             and the 3x3/s2 max of outs -> out, so pool,
+//                             skip and add are one kernel.
 // mid and outs round-trip through device memory: at block 1 that is about
 // 8 GB of traffic against the 0.77 GB bound, which fusing the pair into one
 // kernel per band of rows would remove. Operand rows are padded to 32
@@ -39,7 +40,7 @@
 #include <algorithm>
 #include <cmath>
 
-#include "bf16_gemm.cuh"
+#include "sepconv_pair.cuh"
 
 namespace {
 
@@ -67,37 +68,6 @@ gather_even_kernel(const T* __restrict__ x, bf16* __restrict__ xs, int N, int H,
     store8(xs + m * ld + v * 8, f);
   }
 }
-
-// acc + bias [-> ReLU] -> bf16 out[M][N]
-template <bool RELU>
-struct BiasEpilogue {
-  const float* bias;
-  bf16* out;
-  int M, N;
-  static constexpr bool kStaged = false;
-
-  __device__ __forceinline__ void operator()(const float* d, int row, int n0, int lane,
-                                             const bf16*) const {
-#pragma unroll
-    for (int j = 0; j < gemm::BN / 8; ++j) {
-      const int n = n0 + j * 8 + (lane & 3) * 2;  // N % 8 == 0: n < N implies n + 1 < N
-      if (n >= N) continue;
-      const float2 bv = *reinterpret_cast<const float2*>(bias + n);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = row + half * 8;
-        if (m >= M) continue;
-        float v0 = d[4 * j + 2 * half] + bv.x;
-        float v1 = d[4 * j + 2 * half + 1] + bv.y;
-        if (RELU) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        store2(out + static_cast<size_t>(m) * N + n, v0, v1);
-      }
-    }
-  }
-};
 
 // The skip GEMM's epilogue: row m = (n, q, j) of the pooled output;
 // out = max over outs[n, 2q-1 .. 2q+1, 2j-1 .. 2j+1] (inside the image) +
@@ -166,23 +136,11 @@ struct PoolSkipEpilogue {
   }
 };
 
-// one unit's depthwise in K3's tap order, ReLU on its input if RELU
-template <bool RELU, typename T>
-int depthwise(const T* x, const float* dw, bf16* a, int N, int H, int W, int C, int ld,
-              cudaStream_t stream) {
-  DwLaunch l;
-  if (int e = dw3x3_setup<T, bf16, RELU, true>(N, H, W, C, &l)) return e;
-  dw3x3_relu_kernel<T, bf16, RELU, true><<<l.grid, DW_THREADS, l.smem, stream>>>(
-      x, dw, a, H, W, C, ld, l.rows_per_band);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int run_block(const T* x, const float* dw0, const bf16* pw0, const float* b0, const float* dw1,
               const bf16* pw1, const float* b1, const bf16* skw, const float* skb, T* out,
               bf16* a0, bf16* mid, bf16* a1, bf16* outs, bf16* xs, int N, int H, int W, int Cin,
               int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu, cudaStream_t stream) {
-  const int M = N * H * W;
   const int Hp = (H + 1) / 2, Wp = (W + 1) / 2;
   const int Mp = N * Hp * Wp;
 
@@ -194,18 +152,9 @@ int run_block(const T* x, const float* dw0, const bf16* pw0, const float* b0, co
   if (const cudaError_t err = cudaGetLastError(); err != cudaSuccess)
     return static_cast<int>(err);
 
-  if (int e = leading_relu ? depthwise<true>(x, dw0, a0, N, H, W, Cin, ldk0, stream)
-                           : depthwise<false>(x, dw0, a0, N, H, W, Cin, ldk0, stream))
+  if (int e = run_pair<Taps::kCols>(x, dw0, pw0, b0, dw1, pw1, b1, outs, a0, mid, a1, N, H, W,
+                                    Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream))
     return e;
-  if (int e = gemm::launch(a0, ldk0, pw0, ldk0, M, Cmid, Cin, BiasEpilogue<true>{b0, mid, M, Cmid},
-                           stream))
-    return e;
-
-  if (int e = depthwise<false>(mid, dw1, a1, N, H, W, Cmid, ldk1, stream)) return e;
-  if (int e = gemm::launch(a1, ldk1, pw1, ldk1, M, Cout, Cmid,
-                           BiasEpilogue<false>{b1, outs, M, Cout}, stream))
-    return e;
-
   return gemm::launch(xs, ldk0, skw, ldk0, Mp, Cout, Cin,
                       PoolSkipEpilogue<T>{skb, outs, out, Mp, Cout, H, W, Hp, Wp}, stream);
 }

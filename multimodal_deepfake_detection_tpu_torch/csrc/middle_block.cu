@@ -6,7 +6,11 @@
 //     ReLU -> round to bf16 -> depthwise 3x3 (zero pad 1, fp32 taps summed
 //     dy-major) -> round to bf16 -> pointwise CxC (bf16 x bf16 -> fp32) + bias
 //     -> (last rep: + block input in fp32) -> store in the I/O dtype,
-// on NHWC activations (N, H, W, C) in bf16 or fp32.
+// on NHWC activations (N, H, W, C) in bf16 or fp32. With bf16 taps it also
+// replaces sepconv_block.py::middle_block_pallas_v2(precise=False)
+// (_block_kernel_v2 with a bf16 accumulator): taps, products and running
+// sums rounded to bf16. v1 (middle_block_pallas) and v2 with precise=True
+// compute the fp32-tap function and run this kernel as it is.
 //
 // Each rep is two kernels:
 //   dw3x3_relu_kernel (sm90_common.cuh, shared with K2) — memory-bound:
@@ -85,15 +89,15 @@ struct ResidualEpilogue {
   }
 };
 
-template <typename T>
+template <Taps ORDER, typename T>
 int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* out, bf16* a,
               int N, int H, int W, int C, int ldk, int reps, cudaStream_t stream) {
   const int M = N * H * W;
   DwLaunch dw_launch;
-  if (int e = dw3x3_setup<T, bf16>(N, H, W, C, &dw_launch)) return e;
+  if (int e = dw3x3_setup<T, bf16, true, ORDER>(N, H, W, C, &dw_launch)) return e;
   for (int r = 0; r < reps; ++r) {
     const T* src = r == 0 ? x : out;
-    dw3x3_relu_kernel<T, bf16><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
+    dw3x3_relu_kernel<T, bf16, true, ORDER><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
         src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -113,21 +117,27 @@ extern "C" {
 // x, out: (N, H, W, C) contiguous, bf16 (fp32_io == 0) or fp32 (fp32_io == 1);
 // dw: (reps, 9, C) fp32; pw: (reps, C, ldk) bf16 [out][in], columns past C
 // unread; b: (reps, C) fp32; scratch: N*H*W*ldk bf16; every pointer 16-byte
-// aligned, C % 8 == 0, ldk % 8 == 0, ldk >= C.
+// aligned, C % 8 == 0, ldk % 8 == 0, ldk >= C. bf16_taps: 0 sums fp32
+// products of the fp32 taps, 1 rounds taps, products and sums to bf16.
 // Returns a cudaError_t code, 0 on success.
 int mdfd_middle_block(const void* x, const void* dw, const void* pw, const void* b, void* out,
                       void* scratch, int N, int H, int W, int C, int ldk, int reps, int fp32_io,
-                      void* stream) {
+                      int bf16_taps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dwf = static_cast<const float*>(dw);
   const bf16* pwb = static_cast<const bf16*>(pw);
   const float* bf = static_cast<const float*>(b);
   bf16* a = static_cast<bf16*>(scratch);
-  if (fp32_io)
-    return run_block(static_cast<const float*>(x), dwf, pwb, bf, static_cast<float*>(out), a, N,
-                     H, W, C, ldk, reps, s);
-  return run_block(static_cast<const bf16*>(x), dwf, pwb, bf, static_cast<bf16*>(out), a, N, H,
-                   W, C, ldk, reps, s);
+  const auto run = [&](auto order) {
+    constexpr Taps kOrder = decltype(order)::value;
+    if (fp32_io)
+      return run_block<kOrder>(static_cast<const float*>(x), dwf, pwb, bf, static_cast<float*>(out),
+                               a, N, H, W, C, ldk, reps, s);
+    return run_block<kOrder>(static_cast<const bf16*>(x), dwf, pwb, bf, static_cast<bf16*>(out), a,
+                             N, H, W, C, ldk, reps, s);
+  };
+  if (bf16_taps) return run(std::integral_constant<Taps, Taps::kDyBf16>{});
+  return run(std::integral_constant<Taps, Taps::kDy>{});
 }
 
 const char* mdfd_error_string(int code) {

@@ -1,8 +1,10 @@
 // Pieces shared by the hand-written kernels (middle_block.cu, K1;
-// middle_block_w8.cu, K2; entry_block.cu, K3) for Hopper, sm_90a:
+// middle_block_w8.cu, K2; entry_block.cu, K3; entry_pair.cu, K4;
+// sepconv_unit.cu, K5) for Hopper, sm_90a:
 //   - 8-wide loads of bf16 / fp32 activations;
-//   - the banded [ReLU ->] bf16 -> depthwise 3x3 kernel that writes the
-//     GEMM's A operand (bf16 for K1 and K3, int8 codes for K2);
+//   - the banded [ReLU ->] depthwise 3x3 kernel that writes the GEMM's A
+//     operand (bf16 for K1, K3, K4 and K5, int8 codes for K2), in one of
+//     three tap orders;
 //   - mbarrier, TMA and wgmma shared-memory descriptor helpers, and the
 //     2-D tensor-map encoder.
 #pragma once
@@ -13,6 +15,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace mdfd {
 
@@ -62,30 +65,42 @@ __device__ __forceinline__ void store8(int8_t* p, const float acc[8]) {
 }
 
 // ---------------------------------------------------------------------------
-// [ReLU ->] bf16 -> depthwise 3x3, fp32 taps, operand out. A block owns a
-// band of up to `rows_per_band` output rows of one image and 64 channels: it
-// stages the band plus its one-row, one-column zero halo in shared memory
-// once (ReLU'd if RELU, and rounded to bf16 as it lands), with the band's
-// 9 x 64 taps, then each thread computes 8 channels of one output pixel per
-// step. Products and sums are rounded separately (no FMA), in the order of
-// the TPU kernel it stands in for, so the result is bit-equal to the plain
-// versions: K1/K2's dy-major sum of the nine taps, or with COL_SUMS K3's
-// column sums, per dx the sum over dy, then (dx0 + dx1) + dx2.
+// [ReLU ->] depthwise 3x3, operand out. A block owns a band of up to
+// `rows_per_band` output rows of one image and 64 channels: it stages the
+// band plus its one-row, one-column zero halo in shared memory once (ReLU'd
+// if RELU; rounded to bf16 as it lands for a bf16 tile, kept as is for an
+// fp32 one), with the band's 9 x 64 taps, then each thread computes 8
+// channels of one output pixel per step. Products and sums are rounded
+// separately (no FMA), in the order of the TPU kernel it stands in for, so
+// the result is bit-equal to the plain versions:
+//   Taps::kDy      fp32 products summed dy-major (K1, K2, K5; K4's stream
+//                  kernels);
+//   Taps::kCols    fp32 products summed per column over dy, then
+//                  (dx0 + dx1) + dx2 (K3; K4's entry_pair_pallas);
+//   Taps::kDyBf16  taps rounded to bf16, each product and each running sum
+//                  rounded to bf16, dy-major (middle_block_pallas_v2 with
+//                  precise=False); needs a bf16 tile.
 // ---------------------------------------------------------------------------
+enum class Taps { kDy, kCols, kDyBf16 };
+
 constexpr int DW_CC = 64;  // channels per block
 constexpr int DW_THREADS = 256;
 
+template <typename TileT>
 __host__ __device__ constexpr int dw_smem_bytes(int rows, int W) {
-  return (rows + 2) * (W + 2) * DW_CC * 2 + 9 * DW_CC * 4;
+  return (rows + 2) * (W + 2) * DW_CC * static_cast<int>(sizeof(TileT)) + 9 * DW_CC * 4;
 }
 
-template <typename T, typename OutT, bool RELU = true, bool COL_SUMS = false>
+template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy,
+          typename TileT = bf16>
 __global__ void __launch_bounds__(DW_THREADS)
 dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
                   OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band) {
+  static_assert(ORDER != Taps::kDyBf16 || std::is_same_v<TileT, bf16>,
+                "bf16 taps read a bf16 tile");
   extern __shared__ __align__(16) unsigned char dw_smem[];
-  float* taps_s = reinterpret_cast<float*>(dw_smem);         // [9][DW_CC]
-  bf16* tile = reinterpret_cast<bf16*>(taps_s + 9 * DW_CC);  // [rows+2][W+2][DW_CC]
+  float* taps_s = reinterpret_cast<float*>(dw_smem);           // [9][DW_CC]
+  TileT* tile = reinterpret_cast<TileT*>(taps_s + 9 * DW_CC);  // [rows+2][W+2][DW_CC]
 
   const int bands = (H + rows_per_band - 1) / rows_per_band;
   const int n = blockIdx.x / bands;
@@ -99,7 +114,9 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   for (int i = threadIdx.x; i < 9 * vecs * 8; i += DW_THREADS) {
     const int k = i / (vecs * 8);
     const int c = i - k * vecs * 8;
-    taps_s[k * DW_CC + c] = taps[k * C + c0 + c];
+    const float t = taps[k * C + c0 + c];
+    // bf16 taps are staged already rounded, so their conversion back is exact
+    taps_s[k * DW_CC + c] = ORDER == Taps::kDyBf16 ? __bfloat162float(__float2bfloat16_rn(t)) : t;
   }
   for (int i = threadIdx.x; i < (rows + 2) * pitch * vecs; i += DW_THREADS) {
     const int v = i % vecs;
@@ -108,18 +125,15 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
     const int r = p / pitch;
     const int hh = h0 - 1 + r;
     const int ww = col - 1;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-      float f[8];
       load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + v * 8, f);
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+      if (RELU) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[e] = RELU ? __floats2bfloat162_rn(f[2 * e] > 0.f ? f[2 * e] : 0.f,
-                                            f[2 * e + 1] > 0.f ? f[2 * e + 1] : 0.f)
-                    : __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+        for (int e = 0; e < 8; ++e) f[e] = f[e] > 0.f ? f[e] : 0.f;
+      }
     }
-    *reinterpret_cast<uint4*>(tile + (r * pitch + col) * DW_CC + v * 8) = packed;
+    store8(tile + (r * pitch + col) * DW_CC + v * 8, f);  // bf16 tile: rounded here
   }
   __syncthreads();
 
@@ -129,7 +143,7 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
     const int r = p / W;
     const int w = p - r * W;
     float acc[8];
-    if constexpr (COL_SUMS) {
+    if constexpr (ORDER == Taps::kCols) {
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         float col[8];
@@ -147,6 +161,26 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[e] = dx == 0 ? col[e] : __fadd_rn(acc[e], col[e]);
       }
+    } else if constexpr (ORDER == Taps::kDyBf16) {
+      bf16 hacc[8];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8);
+          const bf16* in = reinterpret_cast<const bf16*>(&raw);
+          float t[8];
+          load8(taps_s + (dy * 3 + dx) * DW_CC + v * 8, t);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            // _rn: nvcc may not contract the product and the sum into an FMA
+            const bf16 prod = __hmul_rn(in[e], __float2bfloat16_rn(t[e]));
+            hacc[e] = (dy == 0 && dx == 0) ? prod : __hadd_rn(hacc[e], prod);
+          }
+        }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = __bfloat162float(hacc[e]);
     } else {
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
@@ -178,16 +212,29 @@ struct DwLaunch {
   int rows_per_band;
 };
 
-template <typename T, typename OutT, bool RELU = true, bool COL_SUMS = false>
+template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy,
+          typename TileT = bf16>
 int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
   int rows = H < 8 ? H : 8;
-  while (rows > 1 && dw_smem_bytes(rows, W) > 48 * 1024) --rows;
+  while (rows > 1 && dw_smem_bytes<TileT>(rows, W) > 48 * 1024) --rows;
   l->rows_per_band = rows;
-  l->smem = dw_smem_bytes(rows, W);
+  l->smem = dw_smem_bytes<TileT>(rows, W);
   l->grid = dim3(N * ((H + rows - 1) / rows), (C + DW_CC - 1) / DW_CC);
   return static_cast<int>(cudaFuncSetAttribute(
-      dw3x3_relu_kernel<T, OutT, RELU, COL_SUMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw3x3_relu_kernel<T, OutT, RELU, ORDER, TileT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l->smem));
+}
+
+// One depthwise launch on `stream` into a[(n, h, w), :C], rows ldk elements
+// apart. Returns a cudaError_t code.
+template <typename T, typename OutT, bool RELU, Taps ORDER, typename TileT = bf16>
+int dw3x3_launch(const T* x, const float* taps, OutT* a, int N, int H, int W, int C, int ldk,
+                 cudaStream_t stream) {
+  DwLaunch l;
+  if (int e = dw3x3_setup<T, OutT, RELU, ORDER, TileT>(N, H, W, C, &l)) return e;
+  dw3x3_relu_kernel<T, OutT, RELU, ORDER, TileT><<<l.grid, DW_THREADS, l.smem, stream>>>(
+      x, taps, a, H, W, C, ldk, l.rows_per_band);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

@@ -8,15 +8,25 @@ into the preceding convolution:
     b' = bias - mean * scale/sqrt(var+eps)
 
 The folded module stores its conv weights in one compute dtype (the JAX
-package casts them per call to the same values). Every stride-1, no-skip,
-square block that starts with a ReLU — the 8 middle-flow blocks — also keeps
-its weights packed for the K1 kernel (``ops/kernels/middle_block.py``), and
-``use_kernels=True`` routes those blocks through it at any trunk size. Every
-stride-2 block with a skip and two units — entry blocks 1-3 and block 12 —
-keeps its weights packed for the K3 kernel (``ops/kernels/entry_block.py``),
-and ``use_kernels=True, fuse_entry=True`` routes those blocks through it too
-(the JAX ``use_pallas=True`` route with ``MDFD_ENTRY_FUSE_H`` listing every
-stride-2 block's input height).
+package casts them per call to the same values). Packed from the fp32 fold,
+each block also keeps the operands of the kernels that can run it, and
+``FoldedXception.forward(use_kernels=True, ...)`` routes:
+
+- the 8 middle-flow blocks (stride 1, no skip, square, leading ReLU) through
+  K1 (``ops/kernels/middle_block.py``) at any trunk size, with
+  ``middle_taps="bf16"`` in ``middle_block_pallas_v2(precise=False)``'s tap
+  order;
+- with ``fuse_entry``, the stride-2 two-unit blocks with a skip (entry
+  blocks 1-3 and block 12) through K3 (``ops/kernels/entry_block.py``), the
+  JAX ``use_pallas=True`` route with ``MDFD_ENTRY_FUSE_H`` listing every
+  stride-2 block's input height;
+- with ``entry_pair``, the separable pair of those blocks through K4
+  (``ops/kernels/entry_pair.py``, ``entry_pair_pallas``'s switches), the max
+  pool and the skip left to cuDNN: the split the JAX ``tools/microbench.py``
+  times;
+- with ``fuse_exit``, the exit sepconvs conv3 and conv4 through K5
+  (``ops/kernels/sepconv_unit.py``) with their trailing ReLU fused, the
+  targets ``sepconv_unit_pallas`` names.
 """
 from __future__ import annotations
 
@@ -27,7 +37,9 @@ from torch import nn
 
 from ..ops.conv import conv2d, global_avg_pool, linear, max_pool2d
 from ..ops.kernels.entry_block import entry_block, pack_entry_block
-from ..ops.kernels.middle_block import middle_block, pack_middle_block
+from ..ops.kernels.entry_pair import entry_pair as _entry_pair
+from ..ops.kernels.middle_block import TAPS, middle_block, pack_middle_block
+from ..ops.kernels.sepconv_unit import pack_unit, sepconv_unit
 from .xception import Xception
 
 _EPS = 1e-5
@@ -46,17 +58,30 @@ def _fold_sep(sep, bn) -> tuple:
 
 
 class FoldedSep(nn.Module):
-    """Depthwise 3x3 + pointwise 1x1 with the folded BN bias."""
+    """Depthwise 3x3 + pointwise 1x1 with the folded BN bias; with
+    ``pack_k5``, also K5's operands packed from the fp32 fold."""
 
-    def __init__(self, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
+    def __init__(self, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor, dtype: torch.dtype,
+                 pack_k5: bool = False):
         super().__init__()
         self.register_buffer("dw", dw.to(dtype))
         self.register_buffer("pw", pw.to(dtype))
         self.register_buffer("b", b.to(dtype))
+        if pack_k5:
+            for name, t in zip(("k5_dw", "k5_pw", "k5_b"), pack_unit(dw, pw, b)):
+                self.register_buffer(name, t)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = conv2d(x, self.dw, padding=1, groups=x.shape[-1])
         return conv2d(h, self.pw, self.b)
+
+    def forward_relu(self, x: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+        """ReLU(unit(x)); through K5 with its trailing ReLU fused when
+        ``use_kernels``."""
+        if use_kernels:
+            return sepconv_unit(x.contiguous(), self.k5_dw, self.k5_pw, self.k5_b,
+                                leading_relu=False, trailing_relu=True)
+        return torch.relu(self(x))
 
 
 class FoldedBlock(nn.Module):
@@ -84,21 +109,27 @@ class FoldedBlock(nn.Module):
                 self.register_buffer(f"k3_{name}", t)
 
     def k3_operands(self) -> tuple:
-        """K3's packed operands, in :func:`entry_block`'s order."""
+        """K3's packed operands, in :func:`entry_block`'s order; the first six
+        are K4's, in :func:`entry_pair`'s."""
         return tuple(getattr(self, f"k3_{name}") for name in K3_OPERANDS)
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = False,
-                fuse_entry: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = False, fuse_entry: bool = False, *,
+                entry_pair: bool = False, middle_taps: str = "fp32") -> torch.Tensor:
         if use_kernels and self.is_middle:
-            return middle_block(x.contiguous(), self.k1_dw, self.k1_pw, self.k1_b)
+            return middle_block(x.contiguous(), self.k1_dw, self.k1_pw, self.k1_b,
+                                taps=middle_taps)
         if use_kernels and fuse_entry and self.is_entry:
             return entry_block(x.contiguous(), *self.k3_operands(),
                                leading_relu0=self.start_with_relu)
-        h = x
-        for i, unit in enumerate(self.units):
-            if i > 0 or self.start_with_relu:
-                h = torch.relu(h)
-            h = unit(h)
+        if use_kernels and entry_pair and self.is_entry:
+            h = _entry_pair(x.contiguous(), *self.k3_operands()[:6],
+                            leading_relu0=self.start_with_relu)
+        else:
+            h = x
+            for i, unit in enumerate(self.units):
+                if i > 0 or self.start_with_relu:
+                    h = torch.relu(h)
+                h = unit(h)
         if self.stride != 1:
             h = max_pool2d(h, 3, self.stride, 1)
         if self.skip_w is not None:
@@ -132,8 +163,8 @@ class FoldedXception(nn.Module):
             self.register_buffer(f"{name}_w", w.to(dtype))
             self.register_buffer(f"{name}_b", b.to(dtype))
         self.blocks = nn.ModuleList(FoldedBlock(blk, dtype) for blk in model.blocks)
-        self.conv3 = FoldedSep(*_fold_sep(model.conv3, model.bn3), dtype)
-        self.conv4 = FoldedSep(*_fold_sep(model.conv4, model.bn4), dtype)
+        self.conv3 = FoldedSep(*_fold_sep(model.conv3, model.bn3), dtype, pack_k5=True)
+        self.conv4 = FoldedSep(*_fold_sep(model.conv4, model.bn4), dtype, pack_k5=True)
         if model.fc is not None:
             self.register_buffer("fc_w", model.fc.w.detach().to(dtype))
             self.register_buffer("fc_b", model.fc.b.detach().to(dtype))
@@ -141,28 +172,43 @@ class FoldedXception(nn.Module):
             self.fc_w = self.fc_b = None
 
     def forward(self, x: torch.Tensor, *, features_only: bool = False, use_kernels: bool = False,
-                fuse_entry: bool = False, upto: Optional[str] = None) -> torch.Tensor:
+                fuse_entry: bool = False, entry_pair: bool = False, middle_taps: str = "fp32",
+                fuse_exit: bool = False, upto: Optional[str] = None) -> torch.Tensor:
         """NHWC images -> features (or logits). ``use_kernels`` routes the
-        middle blocks through K1, and with ``fuse_entry`` the stride-2 blocks
-        through K3; ``upto`` ("stem", "block<k>", "exit") returns that
+        middle blocks through K1 (``middle_taps`` its tap order); with
+        ``fuse_entry`` the stride-2 blocks through K3, or with ``entry_pair``
+        their separable pairs through K4; with ``fuse_exit`` conv3 and conv4
+        through K5. ``upto`` ("stem", "block<k>", "exit") returns that
         stage's output."""
+        check_routes(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps)
         x = x.to(self.dtype)
         h = torch.relu(conv2d(x, self.conv1_w, self.conv1_b, stride=2))
         h = torch.relu(conv2d(h, self.conv2_w, self.conv2_b))
         if upto == "stem":
             return h
         for k, block in enumerate(self.blocks):
-            h = block(h, use_kernels, fuse_entry)
+            h = block(h, use_kernels, fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps)
             if upto == f"block{k + 1}":
                 return h
-        h = torch.relu(self.conv3(h))
-        h = torch.relu(self.conv4(h))
+        h = self.conv3.forward_relu(h, use_kernels and fuse_exit)
+        h = self.conv4.forward_relu(h, use_kernels and fuse_exit)
         if upto == "exit":
             return h
         feats = global_avg_pool(h)
         if features_only or self.fc_w is None:
             return feats
         return linear(feats, self.fc_w, self.fc_b)
+
+
+def check_routes(*, fuse_entry: bool = False, entry_pair: bool = False,
+                 middle_taps: str = "fp32") -> None:
+    """Raises on a combination of kernel routes that does not exist: K3 and K4
+    both claim the stride-2 blocks, and K1 has two tap orders."""
+    if fuse_entry and entry_pair:
+        raise ValueError("fuse_entry (K3, the whole stride-2 block) and entry_pair (K4, its "
+                         "separable pair) route the same blocks: choose one")
+    if middle_taps not in TAPS:
+        raise ValueError(f"middle_taps must be 'fp32' or 'bf16', got {middle_taps!r}")
 
 
 def fold_xception_bn(model: Xception, dtype: torch.dtype = torch.float32) -> FoldedXception:

@@ -5,8 +5,10 @@ VisualScorer``. One call of :meth:`VisualScorer.score`:
 
 1. uint8 ``(B, T, H, W, 3)`` -> fp32 / 255, optional bilinear resize;
 2. BN-folded Xception over the B*T frames, the 8 middle-flow blocks through
-   the K1 kernel when the tensors are on CUDA, and with ``fuse_entry`` the 4
-   stride-2 blocks through the K3 kernel (``models/fold.py``); or, with
+   the K1 kernel when the tensors are on CUDA (with ``middle_taps="bf16"`` in
+   bf16 tap order), with ``fuse_entry`` the 4 stride-2 blocks through the K3
+   kernel or with ``entry_pair`` their separable pairs through K4, and with
+   ``fuse_exit`` the exit sepconvs through K5 (``models/fold.py``); or, with
    ``quantize``, the w8a8 tree (``models/quant.py``);
 3. LSTM over T in the compute dtype, last valid step;
 4. ArcFace cosine logits (s=30) in fp32, softmax fake probability.
@@ -38,7 +40,7 @@ from ..utils.jax_weights import (
     xception_lstm_from_jax,
     xception_lstm_to_jax,
 )
-from .fold import fold_xception_bn
+from .fold import check_routes, fold_xception_bn
 from .heads import ArcFace, XceptionLSTM, arcface_apply
 from .quant import (
     QuantizedXception,
@@ -90,22 +92,32 @@ class VisualScorer:
         buckets: Optional[Sequence[int]] = None,
         quantize: Optional[str] = None,
         fuse_entry: bool = False,
+        entry_pair: bool = False,
+        middle_taps: str = "fp32",
+        fuse_exit: bool = False,
         device="cuda",
     ):
         """``use_kernels=None`` runs the middle flow through the K1 kernel
         (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
         its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
         versions (the reference runs compare against this). ``quantize``:
-        one of :data:`QUANT_MODES`. ``fuse_entry`` also runs the 4 stride-2
-        blocks of the fp path through the K3 kernel when kernels run; the
-        w8a8 walk has no K3 route, so it raises together with ``quantize``."""
+        one of :data:`QUANT_MODES`. When kernels run, the fp path's routes
+        (``models/fold.py``): ``fuse_entry`` runs the 4 stride-2 blocks
+        through the K3 kernel, ``entry_pair`` their separable pairs through
+        K4 (not both); ``middle_taps="bf16"`` runs K1 in bf16 tap order;
+        ``fuse_exit`` runs conv3 and conv4 through K5. The w8a8 walk has none
+        of these routes, so each raises together with ``quantize``."""
         if quantize not in QUANT_MODES:
             raise ValueError(
                 f"quantize must be None, 'w8a8', 'w8a8-hybrid' or 'w8a8-pallas', got {quantize!r}"
             )
-        if fuse_entry and quantize:
-            raise ValueError(f"fuse_entry=True runs the fp path's K3; quantize={quantize!r} "
-                             "has no fused-entry route")
+        check_routes(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps)
+        routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair,
+                      middle_taps=middle_taps != "fp32", fuse_exit=fuse_exit)
+        for name, on in routes.items():
+            if on and quantize:
+                raise ValueError(f"{name} is a route of the fp path's kernels; "
+                                 f"quantize={quantize!r} has no such route")
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         # the fp path's weights, stored in the compute dtype; a quantized
@@ -122,7 +134,8 @@ class VisualScorer:
         # length buckets: T pads up to a bucket, as in the JAX engine
         self.buckets = tuple(buckets) if buckets else None
         self.quantize = quantize
-        self.fuse_entry = fuse_entry
+        self.routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps,
+                           fuse_exit=fuse_exit)
         # the quantizer reads fp32 folded weights: quantizing the compute-dtype
         # fold would round every weight twice
         self.fp_tree = (
@@ -174,7 +187,7 @@ class VisualScorer:
             )
         else:
             feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels,
-                                         fuse_entry=self.fuse_entry)
+                                         **self.routes)
         return feats.reshape(B, T, -1)
 
     @torch.inference_mode()

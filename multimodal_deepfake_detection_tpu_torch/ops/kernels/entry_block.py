@@ -6,7 +6,8 @@ entry_block_pallas`` (``_entry_block_kernel``) and ``sepconv_entry_striped.py::
 entry_block_striped_pallas`` (``_striped_kernel``), the same function for
 images up to and above 96 rows, with weights packed as
 ``sepconv_entry.py::pack_entry_block``. Source: ``csrc/entry_block.cu`` (CUDA
-C++, ``sm_90a``), built by ``_build.py`` and bound through ``ctypes``.
+C++, ``sm_90a``), built by ``_build.py`` and bound through ``ctypes``. Its
+pair stage is K4's (``csrc/sepconv_pair.cuh``, ``entry_pair.py``).
 
 What bounds it on an H100: at 256 frames of 256^2 each block is 192-400
 GFLOP of bf16 pointwise work (tensor cores) against one read of x and one
@@ -43,31 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .middle_block import PW_ROW_ALIGN
-
-
-def _depthwise_col_sums(a: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """Zero-padded 3x3 depthwise on NHWC fp32 ``a`` with ``taps (9, C)``
-    (index ``dy*3+dx``), summed in K3's order: per dx over dy, then
-    ``(dx0 + dx1) + dx2``."""
-    _, H, W, _ = a.shape
-    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
-    cols = []
-    for dx in range(3):
-        s = None
-        for dy in range(3):
-            p = ap[:, dy : dy + H, dx : dx + W, :] * taps[dy * 3 + dx].float()
-            s = p if s is None else s + p
-        cols.append(s)
-    return (cols[0] + cols[1]) + cols[2]
-
-
-def _pointwise(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """NHWC fp32 ``a`` (bf16 values) @ the first K columns of ``w (N, ldk)``
-    as bf16 values, + ``b``, in fp32."""
-    K = a.shape[-1]
-    o = a.reshape(-1, K) @ w[:, :K].to(torch.bfloat16).float().t() + b.float()
-    return o.reshape(*a.shape[:-1], -1)
+from ._plain import check_operands, pad_rows, pointwise_ref
+from .entry_pair import check_pair, entry_pair_ref, pack_pair
 
 
 def entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
@@ -79,14 +57,11 @@ def entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: b
     as bf16 values); ``b0 (Cmid,)``, ``b1``, ``skb (Cout,)`` fp32.
     Returns ``(N, (H+1)//2, (W+1)//2, Cout)`` in x's dtype.
     """
-    xb = x.to(torch.bfloat16).float()
-    a = torch.relu(xb) if leading_relu0 else xb
-    a = _depthwise_col_sums(a, dw0).to(torch.bfloat16).float()
-    mid = torch.relu(_pointwise(a, pw0, b0)).to(torch.bfloat16).float()
-    a = _depthwise_col_sums(mid, dw1).to(torch.bfloat16).float()
-    outs = _pointwise(a, pw1, b1).to(torch.bfloat16).float()
+    xb = x.to(torch.bfloat16)
+    # K4's pair on the bf16 x: column sums, bf16 mid, outs in bf16
+    outs = entry_pair_ref(xb, dw0, pw0, b0, dw1, pw1, b1, leading_relu0=leading_relu0).float()
     pooled = F.max_pool2d(outs.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-    skip = _pointwise(xb[:, ::2, ::2, :], skw, skb)
+    skip = pointwise_ref(xb.float()[:, ::2, ::2, :], skw, skb)
     return (pooled + skip).to(x.dtype)
 
 
@@ -102,45 +77,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"entry_block: x must be a CPU or CUDA tensor, got {x.device}")
-    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"entry_block: x must be (N, H, W, Cin) bf16/fp32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("entry_block: x must be NHWC-contiguous and 16-byte aligned")
-    if pw0.dim() != 2 or pw1.dim() != 2:
-        raise ValueError("entry_block: pw0 and pw1 must be 2-D [out, in] matrices")
-    N, H, W, Cin = x.shape
-    (Cmid, ldk0), (Cout, ldk1) = pw0.shape, pw1.shape
-    for name, v in (("Cin", Cin), ("Cmid", Cmid), ("Cout", Cout), ("pw0's row length", ldk0),
-                    ("pw1's row length", ldk1)):
-        if v % 8:
-            raise ValueError(f"entry_block: {name} = {v} must be a multiple of 8 (16-byte rows)")
-    if ldk0 < Cin or ldk1 < Cmid:
-        raise ValueError(f"entry_block: pw0's rows ({ldk0}) must hold Cin = {Cin} and pw1's "
-                         f"({ldk1}) Cmid = {Cmid}")
-    if N * H * W >= 2**31:
-        raise ValueError("entry_block: N*H*W must fit in int32")
-    if W > 512:
-        raise ValueError(f"entry_block: W={W} > 512 (the staged depthwise band outgrows "
-                         "shared memory)")
-    for name, t, shape, dtype in (
-        ("dw0", dw0, (9, Cin), torch.float32),
-        ("b0", b0, (Cmid,), torch.float32),
-        ("dw1", dw1, (9, Cmid), torch.float32),
-        ("pw1", pw1, (Cout, ldk1), torch.bfloat16),
-        ("b1", b1, (Cout,), torch.float32),
+    check_pair("entry_block", x, dw0, pw0, b0, dw1, pw1, b1)
+    Cout, ldk0 = pw1.shape[0], pw0.shape[1]
+    check_operands("entry_block", x, (
         ("skw", skw, (Cout, ldk0), torch.bfloat16),
         ("skb", skb, (Cout,), torch.float32),
-        ("pw0", pw0, (Cmid, ldk0), torch.bfloat16),
-    ):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"entry_block: {name} must be {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"entry_block: {name} must be contiguous, 16-byte aligned "
-                             f"and on {x.device}")
+    ))
 
 
 def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
@@ -180,11 +122,6 @@ def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool)
 entry_block.launches = 0
 
 
-def _pad_rows(w: torch.Tensor) -> torch.Tensor:
-    """``[out, in]`` -> bf16 with rows zero-padded to a multiple of PW_ROW_ALIGN."""
-    return F.pad(w, (0, -w.shape[1] % PW_ROW_ALIGN)).to(torch.bfloat16).contiguous()
-
-
 def pack_entry_block(units, skip) -> tuple:
     """Folded stride-2 two-unit block -> the kernel's operands.
 
@@ -196,9 +133,5 @@ def pack_entry_block(units, skip) -> tuple:
     ``[in, out]`` matrices transposed, so the GEMMs read both operands
     K-major).
     """
-    (dw0, pw0, b0), (dw1, pw1, b1) = units
     skw, skb = skip
-    taps = lambda dw: dw.float().reshape(dw.shape[0], 9).t().contiguous()
-    vec = lambda b: b.float().contiguous()
-    return (taps(dw0), _pad_rows(pw0[:, :, 0, 0]), vec(b0), taps(dw1), _pad_rows(pw1[:, :, 0, 0]),
-            vec(b1), _pad_rows(skw[:, :, 0, 0]), vec(skb))
+    return pack_pair(units) + (pad_rows(skw[:, :, 0, 0]), skb.float().contiguous())

@@ -25,6 +25,16 @@ to bf16; the 9 taps accumulate in fp32 dy-major; the sum is rounded to bf16
 before the pointwise; the pointwise accumulates in fp32 and adds the bias;
 only the last rep adds the block input, read in fp32 from the unrounded
 input; each rep stores in ``x.dtype``.
+
+The same kernel serves ``ops/pallas/sepconv_block.py``'s image-major entry
+points: ``middle_block_pallas`` (v1) and ``middle_block_pallas_v2`` with
+``precise=True`` compute this function on ``(B, H, W, C)`` (v1 keeps h in
+fp32 between reps but rounds it to bf16 before the taps, which is the same
+value at bf16 I/O). ``middle_block_pallas_v2(precise=False)`` sums the taps
+in bf16: ``taps="bf16"`` rounds each tap, each product and each running sum
+to bf16, dy-major (``__hmul_rn``/``__hadd_rn`` in the kernel, so ``nvcc``
+contracts nothing into a bf16 FMA), with its own launch counter,
+``middle_block_bf16taps.launches``.
 """
 from __future__ import annotations
 
@@ -32,44 +42,52 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from ._build import load_library
+from ._plain import (
+    check_operands,
+    check_widths,
+    check_x,
+    depthwise3x3_ref,
+    dw_taps,
+    pad_rows,
+    pointwise_ref,
+)
 
-PW_ROW_ALIGN = 32  # elements: the GEMM's operand rows start on 64-byte boundaries
+TAPS = {"fp32": "dy", "bf16": "bf16"}  # K1's tap switch -> the depthwise order
 
 
-def middle_block_ref(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor):
+def middle_block_ref(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor,
+                     *, taps: str = "fp32"):
     """Plain PyTorch version of K1 on NHWC ``x``; same rounding points.
 
     ``dw (reps, 9, C)`` fp32 taps (index ``dy*3+dx``), ``pw (reps, C, ldk)``
     ``[out, in]`` with ``ldk >= C`` (the first C columns used, as bf16
-    values), ``b (reps, C)`` fp32.
+    values), ``b (reps, C)`` fp32. ``taps``: ``"fp32"`` or ``"bf16"`` (see
+    the module docstring).
     """
-    N, H, W, C = x.shape
-    reps = dw.shape[0]
+    order = _order(taps)
     h = x
-    for r in range(reps):
+    for r in range(dw.shape[0]):
         a = torch.relu(h).to(torch.bfloat16).float()
-        ap = F.pad(a, (0, 0, 1, 1, 1, 1))  # zero halo on W and H
-        acc = None
-        for dy in range(3):
-            for dx in range(3):
-                contrib = ap[:, dy : dy + H, dx : dx + W, :] * dw[r, dy * 3 + dx].float()
-                acc = contrib if acc is None else acc + contrib
-        a16 = acc.to(torch.bfloat16).float().reshape(N * H * W, C)
-        o = a16 @ pw[r, :, :C].to(torch.bfloat16).float().t() + b[r].float()
-        o = o.reshape(N, H, W, C)
-        if r + 1 == reps:
+        a16 = depthwise3x3_ref(a, dw[r], order).to(torch.bfloat16).float()
+        o = pointwise_ref(a16, pw[r], b[r])
+        if r + 1 == dw.shape[0]:
             o = o + x.float()
         h = o.to(x.dtype)
     return h
 
 
+def _order(taps: str) -> str:
+    if taps not in TAPS:
+        raise ValueError(f"middle_block: taps must be 'fp32' or 'bf16', got {taps!r}")
+    return TAPS[taps]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("middle_block")
-    lib.mdfd_middle_block.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.mdfd_middle_block.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mdfd_middle_block.restype = ctypes.c_int
     lib.mdfd_error_string.argtypes = [ctypes.c_int]
     lib.mdfd_error_string.restype = ctypes.c_char_p
@@ -77,47 +95,30 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x, dw, pw, b) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"middle_block: x must be a CPU or CUDA tensor, got {x.device}")
-    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"middle_block: x must be (N, H, W, C) bf16/fp32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("middle_block: x must be NHWC-contiguous (channels_last)")
-    N, H, W, C = x.shape
-    reps, ldk = dw.shape[0], pw.shape[-1]
-    if C % 8 or ldk % 8 or ldk < C:
-        raise ValueError(f"middle_block: C={C} and pw's row length {ldk} >= C must be "
-                         "multiples of 8 (16-byte rows)")
-    if N * H * W >= 2**31:
-        raise ValueError("middle_block: N*H*W must fit in int32")
-    if W > 512:
-        raise ValueError(f"middle_block: W={W} > 512 (the staged depthwise band outgrows "
-                         "shared memory)")
-    for name, t, shape, dtype in (
+    check_x("middle_block", x)
+    C, reps, ldk = x.shape[-1], dw.shape[0], pw.shape[-1]
+    check_widths("middle_block", C=C, **{"pw's row length": ldk})
+    if ldk < C:
+        raise ValueError(f"middle_block: pw's rows ({ldk}) must hold C = {C}")
+    check_operands("middle_block", x, (
         ("dw", dw, (reps, 9, C), torch.float32),
         ("pw", pw, (reps, C, ldk), torch.bfloat16),
         ("b", b, (reps, C), torch.float32),
-    ):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"middle_block: {name} must be {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"middle_block: {name} must be contiguous, 16-byte aligned "
-                             f"and on {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("middle_block: x must be 16-byte aligned")
+    ))
 
 
-def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor):
+def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor,
+                 *, taps: str = "fp32"):
     """One middle-flow block on NHWC ``x`` -> same shape and dtype.
 
     A CPU tensor takes :func:`middle_block_ref`. A CUDA tensor launches the
     kernel or raises: there is no fallback. ``middle_block.launches`` counts
-    kernel launches.
+    launches with fp32 taps, ``middle_block_bf16taps.launches`` those with
+    ``taps="bf16"``.
     """
+    _order(taps)
     if x.device.type == "cpu":
-        return middle_block_ref(x, dw, pw, b)
+        return middle_block_ref(x, dw, pw, b, taps=taps)
     _check(x, dw, pw, b)
     lib = _lib()
     N, H, W, C = x.shape
@@ -127,15 +128,23 @@ def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.T
     err = lib.mdfd_middle_block(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), b.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), N, H, W, C, ldk, dw.shape[0], int(x.dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(taps == "bf16"), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"middle_block kernel failed: {lib.mdfd_error_string(err).decode()}")
-    middle_block.launches += 1
+    (middle_block_bf16taps if taps == "bf16" else middle_block).launches += 1
     return out
 
 
+def middle_block_bf16taps(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor):
+    """:func:`middle_block` with ``taps="bf16"``, the kernel of
+    ``middle_block_pallas_v2(precise=False)``; ``.launches`` counts its
+    launches."""
+    return middle_block(x, dw, pw, b, taps="bf16")
+
+
 middle_block.launches = 0
+middle_block_bf16taps.launches = 0
 
 
 def pack_middle_block(units) -> tuple:
@@ -145,17 +154,8 @@ def pack_middle_block(units) -> tuple:
     Returns ``dw (reps, 9, C)`` fp32, ``pw (reps, C, ldk)`` bf16 ``[out, in]``
     (the 1x1 conv weight's own layout; the JAX packer's ``[in, out]``
     transposed, so the GEMM reads both operands K-major) with rows
-    zero-padded to ``ldk = PW_ROW_ALIGN * ceil(C / PW_ROW_ALIGN)``, and
+    zero-padded to ``ldk = 32 * ceil(C / 32)`` (``_plain.PW_ROW_ALIGN``), and
     ``b (reps, C)`` fp32, all contiguous.
     """
-    dws, pws, bs = [], [], []
-    for dw, pw, b in units:
-        C = pw.shape[1]
-        dws.append(dw.float().reshape(dw.shape[0], 9).t())
-        pws.append(F.pad(pw[:, :, 0, 0], (0, -C % PW_ROW_ALIGN)))
-        bs.append(b.float())
-    return (
-        torch.stack(dws).contiguous(),
-        torch.stack(pws).to(torch.bfloat16).contiguous(),
-        torch.stack(bs).contiguous(),
-    )
+    dws, pws, bs = zip(*((dw_taps(dw), pad_rows(pw[:, :, 0, 0]), b.float()) for dw, pw, b in units))
+    return torch.stack(dws), torch.stack(pws), torch.stack(bs)

@@ -13,8 +13,13 @@ import torch
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block
-from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import entry_pair
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
+    middle_block,
+    middle_block_bf16taps,
+)
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import middle_block_w8
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import sepconv_unit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +39,8 @@ import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit
 import multimodal_deepfake_detection_tpu_torch.ops.quant
 import multimodal_deepfake_detection_tpu_torch.models.quant
 loaded = sorted(m for m in sys.modules
@@ -60,7 +67,8 @@ def test_loader_raises_without_nvcc(monkeypatch):
         _build.load_library("middle_block")
 
 
-@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8", "entry_block"])
+@pytest.mark.parametrize("name", ["middle_block_w8", "dw_w8a8", "entry_block", "entry_pair",
+                                  "sepconv_unit"])
 def test_int8_kernel_loaders_raise_without_nvcc(monkeypatch, name):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
@@ -71,16 +79,30 @@ def test_int8_kernel_loaders_raise_without_nvcc(monkeypatch, name):
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
     """Off the CPU the wrapper launches the kernel or raises. A meta tensor
-    must raise rather than run the plain version."""
+    must raise rather than run the plain version: K1 with either tap order,
+    K4 with each switch setting, K5."""
     C = 16
     x = torch.empty((1, 2, 2, C), device="meta")
     dw = torch.zeros((3, 9, C))
     pw = torch.zeros((3, C, C), dtype=torch.bfloat16)
     b = torch.zeros((3, C))
-    before = middle_block.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        middle_block(x, dw, pw, b)
-    assert middle_block.launches == before
+    pw2, taps, vec = torch.zeros((C, C), dtype=torch.bfloat16), torch.zeros((9, C)), torch.zeros(C)
+    calls = [
+        (middle_block, middle_block, (x, dw, pw, b), {}),
+        (middle_block_bf16taps, middle_block, (x, dw, pw, b), {"taps": "bf16"}),
+        (middle_block_bf16taps, middle_block_bf16taps, (x, dw, pw, b), {}),
+        (sepconv_unit, sepconv_unit, (x, taps, pw2, vec),
+         {"leading_relu": False, "trailing_relu": True}),
+    ] + [
+        (entry_pair, entry_pair, (x, taps, pw2, vec, taps, pw2, vec),
+         {"leading_relu0": True, "col_sums": col, "mid_fp32": mid})
+        for col, mid in ((True, False), (False, True), (False, False))
+    ]
+    for counter, fn, args, kw in calls:
+        before = counter.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args, **kw)
+        assert counter.launches == before
 
 
 def _meta_args(name):

@@ -3,9 +3,10 @@
 Marked ``gpu``; skips where CUDA is absent. Run on a machine with an H100:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``. TF32 is
 off so the plain versions' fp32 matmuls are exact on bf16 operands. K1's
-bound is the CPU test's bf16 bound (rtol = atol = 1.6e-2) plus mean |d| <=
-1e-3, and so is K3's; K2 and the int8 depthwise have exact integer paths and
-are held to bit equality.
+bound (either tap order) is the CPU test's bf16 bound (rtol = atol = 1.6e-2)
+plus mean |d| <= 1e-3, and so are K3's, K4's (every switch setting) and
+K5's; K2 and the int8 depthwise have exact integer paths and are held to bit
+equality.
 """
 import pytest
 import torch
@@ -15,13 +16,22 @@ from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
     entry_block,
     entry_block_ref,
 )
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import (
+    entry_pair,
+    entry_pair_ref,
+)
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
     middle_block,
+    middle_block_bf16taps,
     middle_block_ref,
 )
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
     middle_block_w8,
     middle_block_w8_ref,
+)
+from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import (
+    sepconv_unit,
+    sepconv_unit_ref,
 )
 from multimodal_deepfake_detection_tpu_torch.ops.quant import conv2d_w8a8, quantize_weight
 
@@ -61,6 +71,89 @@ def test_middle_block_kernel_matches_plain(cuda, N, H, C, dtype, ldk):
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2, atol=1.6e-2)
     assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
+
+
+def _close(got, ref):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2, atol=1.6e-2)
+    assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "N,H,C,dtype",
+    [(15, 4, 728, torch.bfloat16), (3, 3, 728, torch.bfloat16), (3, 2, 728, torch.bfloat16),
+     (1, 1, 728, torch.bfloat16), (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16)],
+)
+def test_middle_block_bf16taps_kernel_matches_plain(cuda, N, H, C, dtype):
+    """K1 in ``middle_block_pallas_v2(precise=False)``'s tap order, counted
+    on its own counter."""
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + C + 7)
+    ldk = -(-C // 32) * 32
+    x = torch.randn((N, H, H, C), generator=g).to(cuda, dtype)
+    dw = (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda)
+    pw = torch.full((3, C, ldk), float("nan"))
+    pw[..., :C] = torch.randn((3, C, C), generator=g) / C ** 0.5
+    pw = pw.to(cuda, torch.bfloat16)
+    b = (torch.randn((3, C), generator=g) * 0.1).to(cuda)
+    before, before_fp32 = middle_block_bf16taps.launches, middle_block.launches
+    got = middle_block_bf16taps(x, dw, pw, b)
+    torch.cuda.synchronize()
+    assert middle_block_bf16taps.launches == before + 1 and middle_block.launches == before_fp32
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, middle_block_ref(x, dw, pw, b, taps="bf16"))
+
+
+def _rows(g, out, k, device):
+    """[out, in] bf16 rows padded to 32 elements with NaN, which the kernels
+    must never read."""
+    w = torch.full((out, -(-k // 32) * 32), float("nan"))
+    w[:, :k] = torch.randn((out, k), generator=g) / k ** 0.5
+    return w.to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("col_sums,mid_fp32", [(True, False), (False, True), (False, False)])
+@pytest.mark.parametrize(
+    "N,H,W,Cin,Cmid,Cout,dtype,lead",
+    [(15, 29, 29, 64, 128, 128, torch.bfloat16, False), (3, 1, 1, 728, 728, 1024, torch.bfloat16, True),
+     (3, 2, 2, 256, 728, 728, torch.bfloat16, True), (5, 3, 3, 128, 256, 256, torch.bfloat16, True),
+     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True)],
+)
+def test_entry_pair_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, lead, col_sums,
+                                         mid_fp32):
+    """K4 with each entry point's switches: ``entry_pair_pallas`` and stream2
+    with ``dx_roll`` (column sums), the stream kernel (fp32 mid), stream2
+    without ``dx_roll``."""
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
+    vec = lambda *shape, s: (torch.randn(shape, generator=g) * s).to(cuda)
+    x = torch.randn((N, H, W, Cin), generator=g).to(cuda, dtype)
+    ops = (x, vec(9, Cin, s=0.3), _rows(g, Cmid, Cin, cuda), vec(Cmid, s=0.1), vec(9, Cmid, s=0.3),
+           _rows(g, Cout, Cmid, cuda), vec(Cout, s=0.1))
+    kw = dict(leading_relu0=lead, col_sums=col_sums, mid_fp32=mid_fp32)
+    before = entry_pair.launches
+    got = entry_pair(*ops, **kw)
+    torch.cuda.synchronize()
+    assert entry_pair.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N, H, W, Cout)
+    _close(got, entry_pair_ref(*ops, **kw))
+
+
+@pytest.mark.parametrize(
+    "N,H,Cin,Cout,dtype,lead,trail",
+    [(15, 8, 1024, 1536, torch.bfloat16, False, True), (15, 1, 1536, 2048, torch.bfloat16, False, True),
+     (3, 2, 1024, 1536, torch.bfloat16, True, False), (5, 9, 40, 16, torch.bfloat16, True, True),
+     (3, 2, 1536, 2048, torch.float32, False, False)],
+)
+def test_sepconv_unit_kernel_matches_plain(cuda, N, H, Cin, Cout, dtype, lead, trail):
+    g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
+    x = torch.randn((N, H, H, Cin), generator=g).to(cuda, dtype)
+    ops = (x, (torch.randn((9, Cin), generator=g) * 0.3).to(cuda), _rows(g, Cout, Cin, cuda),
+           (torch.randn(Cout, generator=g) * 0.1).to(cuda))
+    kw = dict(leading_relu=lead, trailing_relu=trail)
+    before = sepconv_unit.launches
+    got = sepconv_unit(*ops, **kw)
+    torch.cuda.synchronize()
+    assert sepconv_unit.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N, H, H, Cout)
+    _close(got, sepconv_unit_ref(*ops, **kw))
 
 
 def test_middle_block_rejects_non_contiguous(cuda):

@@ -173,8 +173,9 @@ def test_serve_config_keeps_jax_names_and_defaults():
     from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, parse_config
 
     jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
-    # the port's own flags (the JAX route to K3 is the MDFD_ENTRY_FUSE_H env gate)
-    port_only = {"device", "fuse_entry"}
+    # the port's own flags (the JAX route to K3 is the MDFD_ENTRY_FUSE_H env
+    # gate; the JAX package routes K4, K5 and v2's bf16 taps only in its tools)
+    port_only = {"device", "fuse_entry", "entry_pair", "middle_taps", "fuse_exit"}
     for f in dataclasses.fields(Config):
         if f.name not in port_only:
             assert f.default == jax_defaults[f.name], f.name
