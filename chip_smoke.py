@@ -7,13 +7,18 @@ Phases, all of them on every run, each printing its lines; any failure
 raises and exits non-zero:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
+   torch's TF32 flags as this torch sets them by default (left in force: the
+   fp32 reference scorer pins IEEE fp32 itself);
 2. build: compile every kernel of the serving paths from csrc/ with nvcc,
    one process per source, all at once: K1 (middle_block.cu, both tap
    orders), K2 (middle_block_w8.cu), the int8 depthwise (dw_w8a8.cu), K3
    (entry_block.cu), K4 (entry_pair.cu) and K5 (sepconv_unit.cu);
-3. kernels, TF32 off: each kernel against its plain PyTorch version at the
-   shapes serving gives it, and at edge shapes; K1 in both tap orders, K4
-   with each JAX entry point's switches;
+3. kernels, TF32 off for this phase only: each kernel against its plain
+   PyTorch version at the shapes serving gives it, at edge shapes, and at
+   N = 1 at widths past the first design's staged band (W > 512; > 1024 for
+   the int8 depthwise); K1 in both tap orders, K4 with each JAX entry
+   point's switches; then the device launches of one K4 pair (2) and one K3
+   block (4) at each stride-2 block's shape, counted by ``torch.profiler``;
 4. slice: a seeded full-width XceptionLSTMV + ArcFace bundle in the JAX
    format and a few uint8 clips at 256^2, scored through the port's CLI
    (``cli/serve.py --engine visual``, bf16 on CUDA), on the fp path, with
@@ -31,8 +36,9 @@ raises and exits non-zero:
    route one, a wrong operand, each of which must fail its bars;
 5. times on the card (CUDA events after warmup): each kernel against its
    plain version and against PyTorch's own calls for the same function (K3
-   per stride-2 block, K4 per stride-2 pair, K5 per exit conv, of 256
-   frames), and the slice's frames/s, fp (plain, K1, each route) and w8a8,
+   per stride-2 block, K4 per stride-2 pair beside the first design's
+   four-launch pair (two K5 units), K5 per exit conv, of 256 frames), and
+   the slice's frames/s, fp (plain, K1, each route) and w8a8,
    in turns; then the device busy share and the top kernels of one scored
    batch per kernel path (``torch.profiler``).
 
@@ -93,6 +99,10 @@ DW_SHAPES = (  # (N, H=W, C): the 10 int8 depthwise sites of 256 frames at 256^2
     (256, 8, 1024), (256, 8, 1536),  # conv3, conv4
     (15, 1, 1536),  # the exit flow of a 32^2 input
 )
+# N = 1 at widths the first design's staged band refused: (H, W, C); the
+# int8 depthwise's at W > 1024, the others' at W > 512 (256 for K4's fp32 mid)
+WIDE_DW = (3, 2100, 128)
+WIDE = (3, 1100, 64)
 # K3: (N, H, W, Cin, Cmid, Cout, leading ReLU, dtype name). First the four
 # stride-2 blocks of 256 frames at 256^2 (blocks 1, 2, 3, 12); then odd N at
 # the 64^2 blocks, 1x1, 2x2 and 3x3 images, a non-square one with C = 40
@@ -113,6 +123,7 @@ K3_SHAPES = K3_BLOCKS + (
     (3, 3, 3, 256, 728, 728, True, "bfloat16"),
     (4, 13, 21, 40, 16, 24, False, "bfloat16"),
     (5, 15, 15, 128, 256, 256, True, "float32"),
+    (1, 3, 1101, 64, 128, 128, False, "bfloat16"),
 )
 # K4: the pairs of the four stride-2 blocks of 256 frames at 256^2 (K3's
 # blocks), then K3's edge shapes with a 3x3 one, each with the switches of
@@ -126,6 +137,8 @@ K4_SHAPES = K3_BLOCKS + (
     (5, 3, 3, 256, 728, 728, True, "bfloat16"),
     (4, 13, 21, 40, 16, 24, False, "bfloat16"),
     (5, 15, 15, 128, 256, 256, True, "float32"),
+    (1, 3, 1100, 64, 128, 128, False, "bfloat16"),
+    (1, 2, 700, 64, 40, 24, True, "float32"),
 )
 K4_SWITCHES = ((True, False), (False, True), (False, False))
 # K5: (N, H=W, Cin, Cout, leading ReLU, trailing ReLU, dtype name). conv3 and
@@ -171,15 +184,34 @@ def say(msg: str) -> None:
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    say(f"torch defaults: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cudnn.conv.fp32_precision={getattr(conv, 'fp32_precision', 'n/a')} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     return smi
+
+
+class NoTF32:
+    """TF32 off for the ``with`` block (the plain versions' fp32 matmuls
+    exact on bf16 operands), torch's flags restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.before = b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = self.before
 
 
 def phase_build():
@@ -209,11 +241,11 @@ def compare(torch, label, got, ref, *, int8=False) -> float:
     return max_d
 
 
-def k1_operands(torch, N, H, C, dtype, ldk, seed):
-    """Random K1 operands; the pointwise rows' padding past C holds NaN, which
-    the kernel must never read."""
+def k1_operands(torch, N, H, C, dtype, ldk, seed, W=None):
+    """Random K1 operands on (N, H, W or H, C); the pointwise rows' padding
+    past C holds NaN, which the kernel must never read."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((N, H, H, C), generator=g).to("cuda", getattr(torch, dtype))
+    x = torch.randn((N, H, W or H, C), generator=g).to("cuda", getattr(torch, dtype))
     dw = (torch.randn((3, 9, C), generator=g) * 0.2).cuda()
     pw = torch.full((3, C, ldk), float("nan"))
     pw[..., :C] = torch.randn((3, C, C), generator=g) / C ** 0.5
@@ -221,13 +253,13 @@ def k1_operands(torch, N, H, C, dtype, ldk, seed):
     return x, dw, pw.to("cuda", torch.bfloat16), b
 
 
-def k2_operands(torch, N, H, C, dtype, seed):
+def k2_operands(torch, N, H, C, dtype, seed, W=None):
     """Random K2 operands with per-channel ``s_in`` (the act_scales="channel"
     form); the int8 pointwise rows' padding past C holds garbage, which the
     kernel must never read."""
     g = torch.Generator().manual_seed(seed)
     reps, ldk = 3, -(-C // 64) * 64
-    x = torch.randn((N, H, H, C), generator=g).to("cuda", getattr(torch, dtype))
+    x = torch.randn((N, H, W or H, C), generator=g).to("cuda", getattr(torch, dtype))
     dw = torch.randn((reps, 9, C), generator=g) * 0.2
     pw = torch.randn((reps, C, C), generator=g) / C ** 0.5
     s_w = pw.abs().amax(dim=2) / 127.0
@@ -239,11 +271,11 @@ def k2_operands(torch, N, H, C, dtype, seed):
     return (x,) + tuple(t.cuda().contiguous() for t in (dw, pw_q, s_w, s_in, s_dq, b))
 
 
-def dw_operands(torch, N, H, C, dtype, seed):
+def dw_operands(torch, N, H, C, dtype, seed, W=None):
     """Random int8 depthwise operands: per-channel ``s_in``, ``sc = s_dq * s_w``."""
     g = torch.Generator().manual_seed(seed)
     gx = torch.Generator("cuda").manual_seed(seed)  # the largest inputs are made on the card
-    x = torch.randn((N, H, H, C), generator=gx, device="cuda").to(getattr(torch, dtype))
+    x = torch.randn((N, H, W or H, C), generator=gx, device="cuda").to(getattr(torch, dtype))
     w_q = torch.randint(-127, 128, (C, 1, 3, 3), generator=g, dtype=torch.int8)
     s_in = (2.5 / 127.0) * (0.5 + 1.5 * torch.rand(C, generator=g))
     sc = 1e-3 * (0.5 + torch.rand(C, generator=g))
@@ -267,13 +299,13 @@ def k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed):
             rows(Cout, Cmid), vec(Cout, s=0.1), rows(Cout, Cin), vec(Cout, s=0.1))
 
 
-def k5_operands(torch, N, H, Cin, Cout, dtype, seed):
+def k5_operands(torch, N, H, Cin, Cout, dtype, seed, W=None):
     """Random K5 operands, the packed rows padded to 32 elements with NaN."""
     g = torch.Generator().manual_seed(seed)
     w = torch.full((Cout, -(-Cin // 32) * 32), float("nan"))
     w[:, :Cin] = torch.randn((Cout, Cin), generator=g) / Cin ** 0.5
     gx = torch.Generator("cuda").manual_seed(seed)
-    x = torch.randn((N, H, H, Cin), generator=gx, device="cuda").to(getattr(torch, dtype))
+    x = torch.randn((N, H, W or H, Cin), generator=gx, device="cuda").to(getattr(torch, dtype))
     return (x, (torch.randn((9, Cin), generator=g) * 0.3).cuda(), w.to("cuda", torch.bfloat16),
             (torch.randn(Cout, generator=g) * 0.1).cuda())
 
@@ -359,7 +391,52 @@ def phase_kernels(torch) -> dict:
         worst["sepconv_unit"] = max(worst["sepconv_unit"], compare(
             torch, f"K5 ({N},{H},{H},{Cin})->{Cout} {dtype} relu in/out={lead}/{trail}", got,
             sepconv_unit_ref(*ops, **kw)))
+    # the widths the first design refused, N = 1 (K3 and K4: in their shape lists)
+    H, W, C = WIDE
+    ops = k1_operands(torch, 1, H, C, "bfloat16", C, seed=750, W=W)
+    for taps, name in (("fp32", "middle_block"), ("bf16", "middle_block_bf16taps")):
+        worst[name] = max(worst[name], compare(
+            torch, f"K1 {taps} taps (1,{H},{W},{C}) bfloat16", middle_block(*ops, taps=taps),
+            middle_block_ref(*ops, taps=taps)))
+    ops = k2_operands(torch, 1, H, C, "bfloat16", seed=751, W=W)
+    worst["middle_block_w8"] = max(worst["middle_block_w8"], compare(
+        torch, f"K2 (1,{H},{W},{C}) bfloat16", middle_block_w8(*ops), middle_block_w8_ref(*ops),
+        int8=True))
+    ops = k5_operands(torch, 1, H, C, 48, "bfloat16", seed=752, W=W)
+    kw = dict(leading_relu=True, trailing_relu=True)
+    worst["sepconv_unit"] = max(worst["sepconv_unit"], compare(
+        torch, f"K5 (1,{H},{W},{C})->48 bfloat16", sepconv_unit(*ops, **kw),
+        sepconv_unit_ref(*ops, **kw)))
+    H, W, C = WIDE_DW
+    ops = dw_operands(torch, 1, H, C, "bfloat16", seed=753, W=W)
+    worst["dw_w8a8"] = max(worst["dw_w8a8"], compare(
+        torch, f"dw_w8a8 (1,{H},{W},{C}) bfloat16", dw_w8a8(*ops, torch.bfloat16),
+        dw_w8a8_ref(*ops, torch.bfloat16), int8=True))
+    torch.cuda.synchronize()
+    # device launches per call of the redesigned K4 and K3
+    for i, (N, H, W, Cin, Cmid, Cout, lead, dtype) in enumerate(K3_BLOCKS):
+        ops = k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed=760 + i)
+        n4 = device_launches(torch, lambda: entry_pair(*ops[:7], leading_relu0=lead))
+        n3 = device_launches(torch, lambda: entry_block(*ops, leading_relu0=lead))
+        say(f"device launches at ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout}: K4 pair {n4}, "
+            f"K3 block {n3}")
+        if (n4, n3) != (2, 4):
+            raise AssertionError(f"K4 launched {n4} kernels (2 expected), K3 {n3} (4 expected)")
+        del ops
     return worst
+
+
+def device_launches(torch, fn) -> int:
+    """The number of kernels the device ran for one ``fn()``, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
 
 
 def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None:
@@ -511,6 +588,7 @@ def phase_slice(torch, workdir: str) -> dict:
     # each mode through VisualScorer (score + frame_features: 2 backbone
     # calls per batch), counted, against the plain fp32 path (no kernel) and
     # the plain quantized path on the kernel path's calibrated tree
+    check_fp32(torch, bundle, batches[0][0][:1])
     plain32 = VisualScorer.from_bundle(bundle, compute_dtype=torch.float32, use_kernels=False,
                                        **kw)
     ref = outputs(torch, plain32, batches)
@@ -569,6 +647,33 @@ def phase_slice(torch, workdir: str) -> dict:
              outputs(torch, kern, batches), ref, QUANT_FP32_BARS, control=True)
         kern.qbackbone = sound
     return launches
+
+
+def check_fp32(torch, bundle, frames) -> None:
+    """The plain fp32 scorer on the card, with torch's default TF32 flags in
+    force, against the same scorer on the CPU (IEEE fp32) at the CPU parity
+    bars (PERF.md §2): features rtol 1e-3 / atol 2e-4, scores atol 1e-4. The
+    scorer pins IEEE fp32 itself; the same forward with the pin bypassed
+    (cuDNN in TF32) is read beside it."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    kw = dict(compute_dtype=torch.float32, use_kernels=False)
+    card = VisualScorer.from_bundle(bundle, device="cuda", **kw)
+    cpu = VisualScorer.from_bundle(bundle, device="cpu", **kw)
+    flags = torch.backends.cudnn.allow_tf32
+    got = card.score(frames), card.frame_features(frames).double().cpu()
+    ref = cpu.score(frames), cpu.frame_features(frames).double()
+    tf32 = VisualScorer.frame_features.__wrapped__(card, frames).double().cpu()
+    feat_err = lambda f: ((f - ref[1]).abs() - 1e-3 * ref[1].abs()).max().item()
+    say(f"fp32 on the card (cudnn.allow_tf32={flags} in force) vs the CPU: features max "
+        f"(|d| - 1e-3 |ref|) {feat_err(got[1]):.3e} (<= 2e-4), scores max|d| "
+        f"{np.abs(got[0] - ref[0]).max():.3e} (<= 1e-4); the pin bypassed (TF32): "
+        f"{feat_err(tf32):.3e}")
+    if torch.backends.cudnn.allow_tf32 != flags:
+        raise AssertionError("the fp32 scorer left cuDNN's TF32 flag changed")
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=2e-4)
+    if np.abs(got[0] - ref[0]).max() > 1e-4:
+        raise AssertionError("fp32 scores on the card differ from the CPU's")
 
 
 class WrongOperand:
@@ -876,17 +981,19 @@ def time_k4(torch, scorer, smi: str):
     """K4 per stride-2 pair of the scorer's bf16 backbone, on random input of
     256 frames at 256^2: the kernel with the route's switches (those of
     ``entry_pair_pallas``) and with the stream kernels' (dy-major with an fp32
-    mid; dy-major), its plain version, and the library yardstick, the same
-    folded pair through cuDNN depthwise and cuBLAS 1x1 (the plain path's
-    units, ReLUs between). Returns the times and the bound, each summed over
-    the four pairs."""
+    mid; dy-major), the first design's four launches (two K5 units: the
+    tiled depthwise into device memory, then the GEMM, dy-major), its plain
+    version, and the library yardstick, the same folded pair through cuDNN
+    depthwise and cuBLAS 1x1 (the plain path's units, ReLUs between).
+    Returns the times and the bound, each summed over the four pairs."""
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import (
         entry_pair,
         entry_pair_ref,
     )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import sepconv_unit
 
     blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
-    total = dict.fromkeys(("kernel", "stream", "stream2", "plain", "library"), 0.0)
+    total = dict.fromkeys(("kernel", "stream", "stream2", "units", "plain", "library"), 0.0)
     bound = {"bytes": 0.0, "operations": 0.0}
     for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, K3_BLOCKS)):
         assert block.start_with_relu == lead and block.k3_pw0.shape[0] == Cmid
@@ -900,6 +1007,10 @@ def time_k4(torch, scorer, smi: str):
             "stream": lambda: entry_pair(x, *ops4, leading_relu0=lead, col_sums=False,
                                          mid_fp32=True),
             "stream2": lambda: entry_pair(x, *ops4, leading_relu0=lead, col_sums=False),
+            # the first design: per unit the tiled depthwise into a0 / a1, then the GEMM
+            "units": lambda: sepconv_unit(
+                sepconv_unit(x, *ops4[:3], leading_relu=lead, trailing_relu=True), *ops4[3:],
+                leading_relu=False, trailing_relu=False),
             "library": lambda: u1(torch.relu(u0(torch.relu(x) if lead else x))),
         }, 5)
         for name in total:
@@ -912,12 +1023,14 @@ def time_k4(torch, scorer, smi: str):
         say(f"time K4 pair of block {(1, 2, 3, 12)[k]} ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout} "
             f"bf16: kernel {ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the "
             f"pointwise; stream switches {ms['stream']:.4f} ms, stream2 without dx_roll "
-            f"{ms['stream2']:.4f} ms), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS pair "
+            f"{ms['stream2']:.4f} ms), four-launch pair (two K5 units) {ms['units']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms, cuDNN + cuBLAS pair "
             f"{ms['library']:.4f} ms, bound {b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
         del x
     by = max(bound, key=bound.get)
     say(f"time K4, 4 pairs of 256 frames: kernel {total['kernel']:.4f} ms (stream switches "
-        f"{total['stream']:.4f} ms, stream2 without dx_roll {total['stream2']:.4f} ms), plain "
+        f"{total['stream']:.4f} ms, stream2 without dx_roll {total['stream2']:.4f} ms), "
+        f"four-launch pair {total['units']:.4f} ms, plain "
         f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
         f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
     return total, (sum(bound.values()), by)
@@ -1019,7 +1132,8 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
-    max_err = phase_kernels(torch)
+    with NoTF32(torch):
+        max_err = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         launches = phase_slice(torch, workdir)
         times = phase_times(torch, smi, workdir)

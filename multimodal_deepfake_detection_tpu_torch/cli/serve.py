@@ -14,6 +14,8 @@ calibrated on the first batch. On the fp path: ``--fuse_entry true`` runs
 the stride-2 blocks through the K3 kernel, ``--entry_pair true`` their
 separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap order;
 ``--fuse_exit true`` runs the exit sepconvs through K5.
+``--compute_dtype float32`` scores in IEEE fp32 on the card (cuDNN's TF32 is
+off for the duration of each call).
 Video decoding, the other engines, AOT artifacts and the device mesh are not
 ported yet.
 """

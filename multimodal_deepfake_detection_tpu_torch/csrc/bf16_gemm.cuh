@@ -1,6 +1,7 @@
-// The bf16 pointwise GEMM shared by K1 (middle_block.cu), K3
-// (entry_block.cu), K4 (entry_pair.cu) and K5 (sepconv_unit.cu) for Hopper,
-// sm_90a:
+// The bf16 pointwise GEMM shared by K1 (middle_block.cu), K3's skip GEMM
+// (entry_block.cu) and K5 (sepconv_unit.cu) for Hopper, sm_90a; its
+// wgmma, descriptor and operand-map helpers also serve dw_gemm.cuh (K3's
+// and K4's pair):
 //     out[M, N] = epilogue(A[M, K] @ Bt[N, K]^T)
 // bf16 operands, fp32 accumulation, Hopper's warpgroup MMA. A CTA is three
 // warpgroups: one thread of the first issues TMA loads, the other two
@@ -126,7 +127,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
 }
 
 // acc + bias [-> ReLU] -> out[M][N] in OutT (bf16 or fp32), N % 8 == 0:
-// K3's and K4's pair GEMMs, K5's unit GEMM.
+// K5's unit GEMM.
 template <typename OutT, bool RELU>
 struct BiasEpilogue {
   const float* bias;

@@ -7,9 +7,10 @@
 // codes and weights, then y * (s_dq * s_w). PyTorch has no int8 depthwise
 // convolution on CUDA, so this kernel is the port's. It is a memory-bound
 // stencil: at (256, 125, 125, 128) bf16 in and out it must read and write
-// 1.02 GB each way, 0.61 ms at 3.35 TB/s. A block owns a band of output
-// rows of one image and 64 channels: it stages the band and its one-pixel
-// zero halo in shared memory as int8 codes, quantized as they land
+// 1.02 GB each way, 0.61 ms at 3.35 TB/s. A block owns a tile of up to 8
+// output rows by 64 output columns of one image, and 64 channels: it stages
+// the tile and its one-pixel zero halo in shared memory as int8 codes
+// (45 KB at most, so any width fits), quantized as they land
 // (rintf(x / s_in[c]), clipped to +-127: one divide per input element), then
 // each thread sums the 9 taps of 8 channels of one pixel in int32 (exact, so
 // the order is free) and writes float(acc) * sc[c] in the output dtype.
@@ -25,33 +26,38 @@ using namespace mdfd;
 
 constexpr int CC = 64;  // channels per block
 constexpr int THREADS = 256;
-constexpr int SMEM_TARGET = 64 * 1024;  // bands shrink to stay within this where they can
-constexpr int SMEM_MAX = 227 * 1024;
+constexpr int ROWS = 8;  // output rows and columns per tile
+constexpr int COLS = 64;
 
-__host__ __device__ constexpr int smem_bytes(int rows, int W) {
-  return 9 * CC * 4 + 2 * CC * 4 + (rows + 2) * (W + 2) * CC;
+__host__ __device__ constexpr int smem_bytes(int rows, int cols) {
+  return 9 * CC * 4 + 2 * CC * 4 + (rows + 2) * (cols + 2) * CC;
 }
 
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 dw_w8a8_kernel(const T* __restrict__ x, const float* __restrict__ s_in,
                const int8_t* __restrict__ w, const float* __restrict__ sc,
-               OutT* __restrict__ out, int H, int W, int C, int rows_per_band) {
+               OutT* __restrict__ out, int H, int W, int C, int rows_per_band,
+               int cols_per_tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* taps_s = reinterpret_cast<int*>(smem);        // [9][CC]
   float* s_in_s = reinterpret_cast<float*>(taps_s + 9 * CC);  // [CC]
   float* sc_s = s_in_s + CC;                                   // [CC]
-  int8_t* tile = reinterpret_cast<int8_t*>(sc_s + CC);         // [rows+2][W+2][CC]
+  int8_t* tile = reinterpret_cast<int8_t*>(sc_s + CC);         // [rows+2][cols+2][CC]
 
   const int bands = (H + rows_per_band - 1) / rows_per_band;
-  const int n = blockIdx.x / bands;
-  const int h0 = (blockIdx.x % bands) * rows_per_band;
+  const int tiles = (W + cols_per_tile - 1) / cols_per_tile;
+  const int n = blockIdx.x / (bands * tiles);
+  const int t = blockIdx.x - n * bands * tiles;
+  const int h0 = (t / tiles) * rows_per_band;
+  const int w0 = (t % tiles) * cols_per_tile;
   const int rows = min(rows_per_band, H - h0);
+  const int cols = min(cols_per_tile, W - w0);
   const int c0 = blockIdx.y * CC;
   const int cn = min(CC, C - c0);  // C % 8 == 0
   const int vecs = cn / 8;
   const size_t image = static_cast<size_t>(n) * H * W * C;
-  const int pitch = W + 2;
+  const int pitch = cols + 2;
 
   for (int i = threadIdx.x; i < 9 * cn; i += THREADS) {
     const int k = i / cn;
@@ -70,7 +76,7 @@ dw_w8a8_kernel(const T* __restrict__ x, const float* __restrict__ s_in,
     const int col = p % pitch;
     const int r = p / pitch;
     const int hh = h0 - 1 + r;
-    const int ww = col - 1;
+    const int ww = w0 - 1 + col;
     uint2 packed = make_uint2(0u, 0u);
     if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
       float f[8];
@@ -88,9 +94,9 @@ dw_w8a8_kernel(const T* __restrict__ x, const float* __restrict__ s_in,
 
   const int v = threadIdx.x % 8;
   if (v >= vecs) return;
-  for (int p = threadIdx.x / 8; p < rows * W; p += THREADS / 8) {
-    const int r = p / W;
-    const int col = p - r * W;
+  for (int p = threadIdx.x / 8; p < rows * cols; p += THREADS / 8) {
+    const int r = p / cols;
+    const int col = p - r * cols;
     int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy)
@@ -106,7 +112,8 @@ dw_w8a8_kernel(const T* __restrict__ x, const float* __restrict__ s_in,
     float o[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) o[e] = __fmul_rn(__int2float_rn(acc[e]), sc_s[v * 8 + e]);
-    const size_t pixel = static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + col;
+    const size_t pixel =
+        static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w0 + col;
     store8(out + pixel * C + c0 + v * 8, o);
   }
 }
@@ -114,15 +121,15 @@ dw_w8a8_kernel(const T* __restrict__ x, const float* __restrict__ s_in,
 template <typename T, typename OutT>
 int run(const T* x, const float* s_in, const int8_t* w, const float* sc, OutT* out, int N, int H,
         int W, int C, cudaStream_t stream) {
-  int rows = H < 8 ? H : 8;
-  while (rows > 1 && smem_bytes(rows, W) > SMEM_TARGET) --rows;
-  const int smem = smem_bytes(rows, W);
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = H < ROWS ? H : ROWS;
+  const int cols = W < COLS ? W : COLS;
+  const int smem = smem_bytes(rows, cols);
   cudaError_t err = cudaFuncSetAttribute(dw_w8a8_kernel<T, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N * ((H + rows - 1) / rows), (C + CC - 1) / CC);
-  dw_w8a8_kernel<T, OutT><<<grid, THREADS, smem, stream>>>(x, s_in, w, sc, out, H, W, C, rows);
+  const dim3 grid(N * ((H + rows - 1) / rows) * ((W + cols - 1) / cols), (C + CC - 1) / CC);
+  dw_w8a8_kernel<T, OutT><<<grid, THREADS, smem, stream>>>(x, s_in, w, sc, out, H, W, C, rows,
+                                                           cols);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,21 +18,22 @@
 // 192-400 GFLOP of bf16 tensor-core work each (0.19-0.40 ms at 989 TFLOP/s)
 // against one read of x and one pooled write (0.04-0.23 ms at 3.35 TB/s).
 // Every intermediate the TPU kernel keeps in VMEM is already rounded to bf16
-// there, so this first design keeps them in device memory instead: six
-// launches per block,
+// there. Four launches per block:
 //   gather_even_kernel        x at even rows and columns -> bf16 skip operand
-//   run_pair (4 launches)     sepconv_pair.cuh, K4's pair: two depthwise
-//                             (sm90_common.cuh, K3's column-sum order, ReLU
-//                             on x only for blocks that lead with one) and
-//                             two GEMMs (bf16_gemm.cuh, K1's TMA/wgmma GEMM:
-//                             bias + ReLU -> mid; bias -> outs)
+//   run_pair (2 launches)     sepconv_pair.cuh, K4's pair: each unit one GEMM
+//                             whose producer warps compute its depthwise
+//                             (K3's column-sum order, ReLU on x only for
+//                             blocks that lead with one) into the A tile
+//                             (dw_gemm.cuh): bias + ReLU -> mid; bias -> outs
 //   gemm::gemm_kernel         the skip GEMM, whose epilogue adds the bias
 //                             and the 3x3/s2 max of outs -> out, so pool,
 //                             skip and add are one kernel.
-// mid and outs round-trip through device memory: at block 1 that is about
-// 8 GB of traffic against the 0.77 GB bound, which fusing the pair into one
-// kernel per band of rows would remove. Operand rows are padded to 32
-// elements, as K1's are (PW_ROW_ALIGN).
+// Neither depthwise result leaves the chip; mid and outs round-trip through
+// device memory, about 5 GB at block 1 against the 0.77 GB bound. What
+// holds the pair's launches above their bounds is their producers'
+// neighbourhood loads and the consumer's per-tile MMA-epilogue chain
+// (dw_gemm.cuh).
+// Operand rows are padded to 32 elements, as K1's are (PW_ROW_ALIGN).
 //
 // The C interface returns cudaGetLastError() after each launch; the caller
 // owns every buffer and the stream.
@@ -139,8 +140,8 @@ struct PoolSkipEpilogue {
 template <typename T>
 int run_block(const T* x, const float* dw0, const bf16* pw0, const float* b0, const float* dw1,
               const bf16* pw1, const float* b1, const bf16* skw, const float* skb, T* out,
-              bf16* a0, bf16* mid, bf16* a1, bf16* outs, bf16* xs, int N, int H, int W, int Cin,
-              int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu, cudaStream_t stream) {
+              bf16* mid, bf16* outs, bf16* xs, int N, int H, int W, int Cin, int Cmid, int Cout,
+              int ldk0, int ldk1, bool leading_relu, cudaStream_t stream) {
   const int Hp = (H + 1) / 2, Wp = (W + 1) / 2;
   const int Mp = N * Hp * Wp;
 
@@ -152,8 +153,8 @@ int run_block(const T* x, const float* dw0, const bf16* pw0, const float* b0, co
   if (const cudaError_t err = cudaGetLastError(); err != cudaSuccess)
     return static_cast<int>(err);
 
-  if (int e = run_pair<Taps::kCols>(x, dw0, pw0, b0, dw1, pw1, b1, outs, a0, mid, a1, N, H, W,
-                                    Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream))
+  if (int e = run_pair<Taps::kCols>(x, dw0, pw0, b0, dw1, pw1, b1, outs, mid, N, H, W, Cin, Cmid,
+                                    Cout, ldk0, ldk1, leading_relu, stream))
     return e;
   return gemm::launch(xs, ldk0, skw, ldk0, Mp, Cout, Cin,
                       PoolSkipEpilogue<T>{skb, outs, out, Mp, Cout, H, W, Hp, Wp}, stream);
@@ -167,26 +168,25 @@ extern "C" {
 // (fp32_io == 0) or fp32 (fp32_io == 1). dw0: (9, Cin) and dw1: (9, Cmid)
 // fp32 taps; pw0: (Cmid, ldk0), pw1: (Cout, ldk1) and skw: (Cout, ldk0) bf16
 // [out][in], columns past Cin / Cmid unread; b0: (Cmid,), b1, skb: (Cout,)
-// fp32. Scratch, bf16: a0 (N*H*W, ldk0), mid (N*H*W, Cmid), a1 (N*H*W,
-// ldk1), outs (N*H*W, Cout), xs (N*Hp*Wp, ldk0). Every pointer 16-byte
-// aligned; Cin, Cmid, Cout, ldk0 >= Cin and ldk1 >= Cmid multiples of 8.
-// Returns a cudaError_t code, 0 on success.
+// fp32. Scratch, bf16: mid (N*H*W, Cmid), outs (N*H*W, Cout), xs (N*Hp*Wp,
+// ldk0). Every pointer 16-byte aligned; Cin, Cmid, Cout, ldk0 >= Cin and
+// ldk1 >= Cmid multiples of 8. Returns a cudaError_t code, 0 on success.
 int mdfd_entry_block(const void* x, const void* dw0, const void* pw0, const void* b0,
                      const void* dw1, const void* pw1, const void* b1, const void* skw,
-                     const void* skb, void* out, void* a0, void* mid, void* a1, void* outs,
-                     void* xs, int N, int H, int W, int Cin, int Cmid, int Cout, int ldk0,
-                     int ldk1, int leading_relu, int fp32_io, void* stream) {
+                     const void* skb, void* out, void* mid, void* outs, void* xs, int N, int H,
+                     int W, int Cin, int Cmid, int Cout, int ldk0, int ldk1, int leading_relu,
+                     int fp32_io, void* stream) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   const auto hm = [](void* p) { return static_cast<bf16*>(p); };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32_io)
     return run_block(f(x), f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), h(skw), f(skb),
-                     static_cast<float*>(out), hm(a0), hm(mid), hm(a1), hm(outs), hm(xs), N, H,
-                     W, Cin, Cmid, Cout, ldk0, ldk1, leading_relu != 0, s);
+                     static_cast<float*>(out), hm(mid), hm(outs), hm(xs), N, H, W, Cin, Cmid,
+                     Cout, ldk0, ldk1, leading_relu != 0, s);
   return run_block(h(x), f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), h(skw), f(skb),
-                   static_cast<bf16*>(out), hm(a0), hm(mid), hm(a1), hm(outs), hm(xs), N, H, W,
-                   Cin, Cmid, Cout, ldk0, ldk1, leading_relu != 0, s);
+                   static_cast<bf16*>(out), hm(mid), hm(outs), hm(xs), N, H, W, Cin, Cmid, Cout,
+                   ldk0, ldk1, leading_relu != 0, s);
 }
 
 const char* mdfd_error_string(int code) {

@@ -20,11 +20,16 @@
 // What bounds it on an H100: at 256 frames of 256^2 the pairs of blocks 1
 // and 2 are bound by one read of x and one write of out (0.46 and 0.23 ms
 // at 3.35 TB/s), those of blocks 3 and 12 by 376 and 166 GFLOP of bf16
-// pointwise work. The first design is K3's pair stage (sepconv_pair.cuh),
-// four launches with a0, mid and a1 in device memory; keeping them on chip
-// is later work. The TPU-only storage is not carried over: no bordered W2
-// columns, no channels padded to 128 lanes, no stripe heights that must
-// divide H.
+// pointwise work. The design (sepconv_pair.cuh) is two launches, one per
+// unit, each a GEMM whose producer warps compute the unit's depthwise into
+// the A tile (dw_gemm.cuh): neither depthwise result leaves the chip, and
+// mid goes through device memory once each way, so block 1's pair moves
+// 3.6 GB (1.07 ms) where the four launches of the first design moved 6.7
+// GB. What holds each launch above those bounds is the producers'
+// neighbourhood loads and the consumer's per-tile MMA-epilogue chain
+// (dw_gemm.cuh, chip_variants.py). The TPU-only storage is not carried
+// over: no bordered W2 columns, no channels padded to 128 lanes, no stripe
+// heights that must divide H; any W.
 //
 // The C interface returns cudaGetLastError() after each launch; the caller
 // owns every buffer and the stream.
@@ -37,28 +42,28 @@ using namespace mdfd;
 
 template <Taps ORDER, typename T>
 int run(const T* x, const float* dw0, const bf16* pw0, const float* b0, const float* dw1,
-        const bf16* pw1, const float* b1, T* out, bf16* a0, void* mid, bf16* a1, int N, int H,
-        int W, int Cin, int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu, bool mid_fp32,
+        const bf16* pw1, const float* b1, T* out, void* mid, int N, int H, int W, int Cin,
+        int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu, bool mid_fp32,
         cudaStream_t stream) {
   if (mid_fp32)
-    return run_pair<ORDER>(x, dw0, pw0, b0, dw1, pw1, b1, out, a0, static_cast<float*>(mid), a1,
-                           N, H, W, Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream);
-  return run_pair<ORDER>(x, dw0, pw0, b0, dw1, pw1, b1, out, a0, static_cast<bf16*>(mid), a1, N,
-                         H, W, Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream);
+    return run_pair<ORDER>(x, dw0, pw0, b0, dw1, pw1, b1, out, static_cast<float*>(mid), N, H, W,
+                           Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream);
+  return run_pair<ORDER>(x, dw0, pw0, b0, dw1, pw1, b1, out, static_cast<bf16*>(mid), N, H, W,
+                         Cin, Cmid, Cout, ldk0, ldk1, leading_relu, stream);
 }
 
 template <typename T>
 int run_io(const void* x, const float* dw0, const bf16* pw0, const float* b0, const float* dw1,
-           const bf16* pw1, const float* b1, void* out, bf16* a0, void* mid, bf16* a1, int N,
-           int H, int W, int Cin, int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu,
-           bool col_sums, bool mid_fp32, cudaStream_t stream) {
+           const bf16* pw1, const float* b1, void* out, void* mid, int N, int H, int W, int Cin,
+           int Cmid, int Cout, int ldk0, int ldk1, bool leading_relu, bool col_sums,
+           bool mid_fp32, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (col_sums)
-    return run<Taps::kCols>(xt, dw0, pw0, b0, dw1, pw1, b1, ot, a0, mid, a1, N, H, W, Cin, Cmid,
-                            Cout, ldk0, ldk1, leading_relu, mid_fp32, stream);
-  return run<Taps::kDy>(xt, dw0, pw0, b0, dw1, pw1, b1, ot, a0, mid, a1, N, H, W, Cin, Cmid, Cout,
-                        ldk0, ldk1, leading_relu, mid_fp32, stream);
+    return run<Taps::kCols>(xt, dw0, pw0, b0, dw1, pw1, b1, ot, mid, N, H, W, Cin, Cmid, Cout,
+                            ldk0, ldk1, leading_relu, mid_fp32, stream);
+  return run<Taps::kDy>(xt, dw0, pw0, b0, dw1, pw1, b1, ot, mid, N, H, W, Cin, Cmid, Cout, ldk0,
+                        ldk1, leading_relu, mid_fp32, stream);
 }
 
 }  // namespace
@@ -68,28 +73,24 @@ extern "C" {
 // x: (N, H, W, Cin) and out: (N, H, W, Cout), contiguous, bf16 (fp32_io ==
 // 0) or fp32 (fp32_io == 1). dw0: (9, Cin) and dw1: (9, Cmid) fp32 taps;
 // pw0: (Cmid, ldk0), pw1: (Cout, ldk1) bf16 [out][in], columns past Cin /
-// Cmid unread; b0: (Cmid,), b1: (Cout,) fp32. Scratch: a0 (N*H*W, ldk0) and
-// a1 (N*H*W, ldk1) bf16, mid (N*H*W, Cmid) bf16 or, with mid_fp32, fp32.
-// Every pointer 16-byte aligned; Cin, Cmid, Cout, ldk0 >= Cin and ldk1 >=
-// Cmid multiples of 8. col_sums: K3's column-sum tap order, else dy-major.
-// Returns a cudaError_t code, 0 on success.
+// Cmid unread; b0: (Cmid,), b1: (Cout,) fp32. Scratch: mid (N*H*W, Cmid)
+// bf16 or, with mid_fp32, fp32. Every pointer 16-byte aligned; Cin, Cmid,
+// Cout, ldk0 >= Cin and ldk1 >= Cmid multiples of 8. col_sums: K3's
+// column-sum tap order, else dy-major. Returns a cudaError_t code, 0 on
+// success.
 int mdfd_entry_pair(const void* x, const void* dw0, const void* pw0, const void* b0,
-                    const void* dw1, const void* pw1, const void* b1, void* out, void* a0,
-                    void* mid, void* a1, int N, int H, int W, int Cin, int Cmid, int Cout,
-                    int ldk0, int ldk1, int leading_relu, int col_sums, int mid_fp32, int fp32_io,
-                    void* stream) {
+                    const void* dw1, const void* pw1, const void* b1, void* out, void* mid, int N,
+                    int H, int W, int Cin, int Cmid, int Cout, int ldk0, int ldk1,
+                    int leading_relu, int col_sums, int mid_fp32, int fp32_io, void* stream) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bf16* a0b = static_cast<bf16*>(a0);
-  bf16* a1b = static_cast<bf16*>(a1);
   if (fp32_io)
-    return run_io<float>(x, f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), out, a0b, mid, a1b, N,
-                         H, W, Cin, Cmid, Cout, ldk0, ldk1, leading_relu != 0, col_sums != 0,
-                         mid_fp32 != 0, s);
-  return run_io<bf16>(x, f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), out, a0b, mid, a1b, N, H,
-                      W, Cin, Cmid, Cout, ldk0, ldk1, leading_relu != 0, col_sums != 0,
-                      mid_fp32 != 0, s);
+    return run_io<float>(x, f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), out, mid, N, H, W, Cin,
+                         Cmid, Cout, ldk0, ldk1, leading_relu != 0, col_sums != 0, mid_fp32 != 0,
+                         s);
+  return run_io<bf16>(x, f(dw0), h(pw0), f(b0), f(dw1), h(pw1), f(b1), out, mid, N, H, W, Cin,
+                      Cmid, Cout, ldk0, ldk1, leading_relu != 0, col_sums != 0, mid_fp32 != 0, s);
 }
 
 const char* mdfd_error_string(int code) {

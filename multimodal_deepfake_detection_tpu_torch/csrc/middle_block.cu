@@ -15,8 +15,8 @@
 // Each rep is two kernels:
 //   dw3x3_relu_kernel (sm90_common.cuh, shared with K2) — memory-bound:
 //     reads the rep input, writes the bf16 depthwise result (the GEMM's A
-//     operand) to a scratch buffer; bands of rows x 64 channels are staged
-//     in shared memory with their halo.
+//     operand) to a scratch buffer; tiles of rows x columns x 64 channels
+//     are staged in shared memory with their halo.
 //   gemm::gemm_kernel (bf16_gemm.cuh, shared with K3) — tensor cores through
 //     wgmma m64n256k16 (bf16 in, fp32 accumulate) on 128x256x64 tiles in
 //     128-byte-swizzled shared memory, filled by TMA in a 4-stage mbarrier
@@ -98,7 +98,8 @@ int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* ou
   for (int r = 0; r < reps; ++r) {
     const T* src = r == 0 ? x : out;
     dw3x3_relu_kernel<T, bf16, true, ORDER><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
-        src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band);
+        src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band,
+        dw_launch.cols_per_tile);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const ResidualEpilogue<T> epi{b + static_cast<size_t>(r) * C, r + 1 == reps ? x : nullptr,

@@ -13,7 +13,7 @@
 // (1024 -> 1536) and conv4 (1536 -> 2048) at 8^2. At 256 frames those are
 // 51.5 and 103 GFLOP of bf16 pointwise work (0.052 and 0.104 ms at 989
 // TFLOP/s) against 84 and 117 MB of activations (0.025 and 0.035 ms at 3.35
-// TB/s): bound by operations. The design is two launches: the banded
+// TB/s): bound by operations. The design is two launches: the tiled
 // depthwise of sm90_common.cuh writing the bf16 GEMM operand, and the
 // TMA/wgmma GEMM of bf16_gemm.cuh with a bias (+ ReLU) epilogue that stores
 // in the I/O dtype. Operand rows are padded to 32 elements, as K1's are.

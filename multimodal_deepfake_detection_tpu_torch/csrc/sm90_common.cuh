@@ -2,9 +2,9 @@
 // middle_block_w8.cu, K2; entry_block.cu, K3; entry_pair.cu, K4;
 // sepconv_unit.cu, K5) for Hopper, sm_90a:
 //   - 8-wide loads of bf16 / fp32 activations;
-//   - the banded [ReLU ->] depthwise 3x3 kernel that writes the GEMM's A
-//     operand (bf16 for K1, K3, K4 and K5, int8 codes for K2), in one of
-//     three tap orders;
+//   - the depthwise 3x3's arithmetic in three tap orders (dw3x3_sum), and
+//     the tiled [ReLU ->] depthwise kernel that writes the GEMM's A operand
+//     with it (bf16 for K1 and K5, int8 codes for K2);
 //   - mbarrier, TMA and wgmma shared-memory descriptor helpers, and the
 //     2-D tensor-map encoder.
 #pragma once
@@ -65,58 +65,122 @@ __device__ __forceinline__ void store8(int8_t* p, const float acc[8]) {
 }
 
 // ---------------------------------------------------------------------------
-// [ReLU ->] depthwise 3x3, operand out. A block owns a band of up to
-// `rows_per_band` output rows of one image and 64 channels: it stages the
-// band plus its one-row, one-column zero halo in shared memory once (ReLU'd
-// if RELU; rounded to bf16 as it lands for a bf16 tile, kept as is for an
-// fp32 one), with the band's 9 x 64 taps, then each thread computes 8
-// channels of one output pixel per step. Products and sums are rounded
-// separately (no FMA), in the order of the TPU kernel it stands in for, so
-// the result is bit-equal to the plain versions:
+// The depthwise 3x3's arithmetic, one copy for every kernel that computes
+// it: the sum of one output pixel over E channels. in(k, v) fills the E
+// inputs under tap k = dy*3 + dx (ReLU'd and rounded as the caller stages
+// them, zero outside the image); tap(k, t) the E taps. Products and sums
+// are rounded separately (no FMA), in the order of the TPU kernel the
+// caller stands in for, so the result is bit-equal to the plain versions:
 //   Taps::kDy      fp32 products summed dy-major (K1, K2, K5; K4's stream
 //                  kernels);
 //   Taps::kCols    fp32 products summed per column over dy, then
 //                  (dx0 + dx1) + dx2 (K3; K4's entry_pair_pallas);
-//   Taps::kDyBf16  taps rounded to bf16, each product and each running sum
-//                  rounded to bf16, dy-major (middle_block_pallas_v2 with
-//                  precise=False); needs a bf16 tile.
+//   Taps::kDyBf16  each product and each running sum rounded to bf16,
+//                  dy-major (middle_block_pallas_v2 with precise=False);
+//                  inputs and taps must be bf16 values.
 // ---------------------------------------------------------------------------
 enum class Taps { kDy, kCols, kDyBf16 };
 
-constexpr int DW_CC = 64;  // channels per block
-constexpr int DW_THREADS = 256;
-
-template <typename TileT>
-__host__ __device__ constexpr int dw_smem_bytes(int rows, int W) {
-  return (rows + 2) * (W + 2) * DW_CC * static_cast<int>(sizeof(TileT)) + 9 * DW_CC * 4;
+template <Taps ORDER, int E, class In, class Tap>
+__device__ __forceinline__ void dw3x3_sum(const In& in, const Tap& tap, float acc[E]) {
+  if constexpr (ORDER == Taps::kCols) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      float col[E];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        float v[E], t[E];
+        in(dy * 3 + dx, v);
+        tap(dy * 3 + dx, t);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float prod = __fmul_rn(v[e], t[e]);
+          col[e] = dy == 0 ? prod : __fadd_rn(col[e], prod);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = dx == 0 ? col[e] : __fadd_rn(acc[e], col[e]);
+    }
+  } else if constexpr (ORDER == Taps::kDyBf16) {
+    bf16 hacc[E];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      float v[E], t[E];
+      in(k, v);
+      tap(k, t);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        // bf16 values convert back exactly; _rn: nvcc may not contract the
+        // product and the sum into an FMA
+        const bf16 prod = __hmul_rn(__float2bfloat16_rn(v[e]), __float2bfloat16_rn(t[e]));
+        hacc[e] = k == 0 ? prod : __hadd_rn(hacc[e], prod);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = __bfloat162float(hacc[e]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      float v[E], t[E];
+      in(k, v);
+      tap(k, t);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float prod = __fmul_rn(v[e], t[e]);
+        acc[e] = k == 0 ? prod : __fadd_rn(acc[e], prod);
+      }
+    }
+  }
 }
 
-template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy,
-          typename TileT = bf16>
+// ---------------------------------------------------------------------------
+// [ReLU ->] depthwise 3x3, operand out (bf16 for K1 and K5, int8 codes for
+// K2). A block owns a tile of up to `rows_per_band` output rows by
+// `cols_per_tile` output columns of one image, and 64 channels: it stages
+// the tile plus its one-pixel zero halo in shared memory once (ReLU'd if
+// RELU, rounded to bf16 as it lands), with the tile's 9 x 64 taps (rounded
+// to bf16 for Taps::kDyBf16), then each thread computes 8 channels of one
+// output pixel per step with dw3x3_sum.
+// ---------------------------------------------------------------------------
+constexpr int DW_CC = 64;  // channels per block
+constexpr int DW_THREADS = 256;
+// Tiles are sized to this so that four blocks share an SM (occupancy hides
+// the staging loads); tiling along W makes any width fit, far inside the
+// 227 KB a block may use.
+constexpr int DW_SMEM_TARGET = 48 * 1024;
+
+__host__ __device__ constexpr int dw_smem_bytes(int rows, int cols) {
+  return (rows + 2) * (cols + 2) * DW_CC * static_cast<int>(sizeof(bf16)) + 9 * DW_CC * 4;
+}
+
+template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy>
 __global__ void __launch_bounds__(DW_THREADS)
 dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
-                  OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band) {
-  static_assert(ORDER != Taps::kDyBf16 || std::is_same_v<TileT, bf16>,
-                "bf16 taps read a bf16 tile");
+                  OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band,
+                  int cols_per_tile) {
   extern __shared__ __align__(16) unsigned char dw_smem[];
-  float* taps_s = reinterpret_cast<float*>(dw_smem);           // [9][DW_CC]
-  TileT* tile = reinterpret_cast<TileT*>(taps_s + 9 * DW_CC);  // [rows+2][W+2][DW_CC]
+  float* taps_s = reinterpret_cast<float*>(dw_smem);         // [9][DW_CC]
+  bf16* tile = reinterpret_cast<bf16*>(taps_s + 9 * DW_CC);  // [rows+2][cols+2][DW_CC]
 
   const int bands = (H + rows_per_band - 1) / rows_per_band;
-  const int n = blockIdx.x / bands;
-  const int h0 = (blockIdx.x % bands) * rows_per_band;
+  const int tiles = (W + cols_per_tile - 1) / cols_per_tile;
+  const int n = blockIdx.x / (bands * tiles);
+  const int t = blockIdx.x - n * bands * tiles;
+  const int h0 = (t / tiles) * rows_per_band;
+  const int w0 = (t % tiles) * cols_per_tile;
   const int rows = min(rows_per_band, H - h0);
+  const int cols = min(cols_per_tile, W - w0);
   const int c0 = blockIdx.y * DW_CC;
   const int vecs = min(DW_CC, C - c0) / 8;  // C % 8 == 0
   const size_t image = static_cast<size_t>(n) * H * W * C;
-  const int pitch = W + 2;
+  const int pitch = cols + 2;
 
   for (int i = threadIdx.x; i < 9 * vecs * 8; i += DW_THREADS) {
     const int k = i / (vecs * 8);
     const int c = i - k * vecs * 8;
-    const float t = taps[k * C + c0 + c];
+    const float tv = taps[k * C + c0 + c];
     // bf16 taps are staged already rounded, so their conversion back is exact
-    taps_s[k * DW_CC + c] = ORDER == Taps::kDyBf16 ? __bfloat162float(__float2bfloat16_rn(t)) : t;
+    taps_s[k * DW_CC + c] = ORDER == Taps::kDyBf16 ? __bfloat162float(__float2bfloat16_rn(tv)) : tv;
   }
   for (int i = threadIdx.x; i < (rows + 2) * pitch * vecs; i += DW_THREADS) {
     const int v = i % vecs;
@@ -124,7 +188,7 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
     const int col = p % pitch;
     const int r = p / pitch;
     const int hh = h0 - 1 + r;
-    const int ww = col - 1;
+    const int ww = w0 - 1 + col;
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
       load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + v * 8, f);
@@ -133,107 +197,59 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
         for (int e = 0; e < 8; ++e) f[e] = f[e] > 0.f ? f[e] : 0.f;
       }
     }
-    store8(tile + (r * pitch + col) * DW_CC + v * 8, f);  // bf16 tile: rounded here
+    store8(tile + (r * pitch + col) * DW_CC + v * 8, f);  // rounded to bf16 here
   }
   __syncthreads();
 
   const int v = threadIdx.x % 8;
   if (v >= vecs) return;
-  for (int p = threadIdx.x / 8; p < rows * W; p += DW_THREADS / 8) {
-    const int r = p / W;
-    const int w = p - r * W;
+  for (int p = threadIdx.x / 8; p < rows * cols; p += DW_THREADS / 8) {
+    const int r = p / cols;
+    const int w = p - r * cols;
+    const bf16* at = tile + (r * pitch + w) * DW_CC + v * 8;
     float acc[8];
-    if constexpr (ORDER == Taps::kCols) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        float col[8];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          float in[8], t[8];
-          load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
-          load8(taps_s + (dy * 3 + dx) * DW_CC + v * 8, t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float prod = __fmul_rn(in[e], t[e]);
-            col[e] = dy == 0 ? prod : __fadd_rn(col[e], prod);
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = dx == 0 ? col[e] : __fadd_rn(acc[e], col[e]);
-      }
-    } else if constexpr (ORDER == Taps::kDyBf16) {
-      bf16 hacc[8];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8);
-          const bf16* in = reinterpret_cast<const bf16*>(&raw);
-          float t[8];
-          load8(taps_s + (dy * 3 + dx) * DW_CC + v * 8, t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            // _rn: nvcc may not contract the product and the sum into an FMA
-            const bf16 prod = __hmul_rn(in[e], __float2bfloat16_rn(t[e]));
-            hacc[e] = (dy == 0 && dx == 0) ? prod : __hadd_rn(hacc[e], prod);
-          }
-        }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = __bfloat162float(hacc[e]);
-    } else {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          float in[8];
-          load8(tile + ((r + dy) * pitch + w + dx) * DW_CC + v * 8, in);
-          const float4* tp = reinterpret_cast<const float4*>(taps_s + (dy * 3 + dx) * DW_CC + v * 8);
-          const float4 t0 = tp[0];
-          const float4 t1 = tp[1];
-          const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float prod = __fmul_rn(in[e], t[e]);
-            acc[e] = (dy == 0 && dx == 0) ? prod : __fadd_rn(acc[e], prod);
-          }
-        }
-    }
-    const size_t pixel = static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w;
+    dw3x3_sum<ORDER, 8>(
+        [&](int k, float in[8]) { load8(at + ((k / 3) * pitch + k % 3) * DW_CC, in); },
+        [&](int k, float tk[8]) { load8(taps_s + k * DW_CC + v * 8, tk); }, acc);
+    const size_t pixel =
+        static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w0 + w;
     store8(a + pixel * ldk + c0 + v * 8, acc);
   }
 }
 
-// Launch geometry of dw3x3_relu_kernel for one (N, H, W, C): bands of up to 8
-// rows, fewer where the staged band would outgrow 48 KB.
+// Launch geometry of dw3x3_relu_kernel for one (N, H, W, C): tiles of up to
+// 8 rows by 64 columns, the columns halved while the staged tile would
+// outgrow DW_SMEM_TARGET.
 struct DwLaunch {
   dim3 grid;
   int smem;
   int rows_per_band;
+  int cols_per_tile;
 };
 
-template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy,
-          typename TileT = bf16>
+template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy>
 int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
-  int rows = H < 8 ? H : 8;
-  while (rows > 1 && dw_smem_bytes<TileT>(rows, W) > 48 * 1024) --rows;
+  const int rows = H < 8 ? H : 8;
+  int cols = W < 64 ? W : 64;
+  while (cols > 8 && dw_smem_bytes(rows, cols) > DW_SMEM_TARGET) cols = (cols + 1) / 2;
   l->rows_per_band = rows;
-  l->smem = dw_smem_bytes<TileT>(rows, W);
-  l->grid = dim3(N * ((H + rows - 1) / rows), (C + DW_CC - 1) / DW_CC);
+  l->cols_per_tile = cols;
+  l->smem = dw_smem_bytes(rows, cols);
+  l->grid = dim3(N * ((H + rows - 1) / rows) * ((W + cols - 1) / cols), (C + DW_CC - 1) / DW_CC);
   return static_cast<int>(cudaFuncSetAttribute(
-      dw3x3_relu_kernel<T, OutT, RELU, ORDER, TileT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw3x3_relu_kernel<T, OutT, RELU, ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l->smem));
 }
 
 // One depthwise launch on `stream` into a[(n, h, w), :C], rows ldk elements
 // apart. Returns a cudaError_t code.
-template <typename T, typename OutT, bool RELU, Taps ORDER, typename TileT = bf16>
+template <typename T, typename OutT, bool RELU, Taps ORDER>
 int dw3x3_launch(const T* x, const float* taps, OutT* a, int N, int H, int W, int C, int ldk,
                  cudaStream_t stream) {
   DwLaunch l;
-  if (int e = dw3x3_setup<T, OutT, RELU, ORDER, TileT>(N, H, W, C, &l)) return e;
-  dw3x3_relu_kernel<T, OutT, RELU, ORDER, TileT><<<l.grid, DW_THREADS, l.smem, stream>>>(
-      x, taps, a, H, W, C, ldk, l.rows_per_band);
+  if (int e = dw3x3_setup<T, OutT, RELU, ORDER>(N, H, W, C, &l)) return e;
+  dw3x3_relu_kernel<T, OutT, RELU, ORDER><<<l.grid, DW_THREADS, l.smem, stream>>>(
+      x, taps, a, H, W, C, ldk, l.rows_per_band, l.cols_per_tile);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,10 +21,16 @@ depthwise int8), ``"w8a8-hybrid"`` (int8 entry and exit, the fp middle flow
 through K1) and ``"w8a8-pallas"`` (int8 throughout, the middle flow through
 K2). The first :meth:`VisualScorer.score` calibrates on its batch unless
 :meth:`VisualScorer.calibrate` ran before.
+
+``compute_dtype=torch.float32`` means IEEE fp32 on the card: every forward
+of the scorer runs with cuDNN's TF32 switched off (torch's default lets
+cuDNN round fp32 convolution inputs to TF32's 10-bit mantissa), and the
+switch is restored when the call returns or raises.
 """
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +56,23 @@ from .quant import (
 )
 
 QUANT_MODES = (None, "w8a8", "w8a8-hybrid", "w8a8-pallas")
+
+
+def _ieee_fp32(method):
+    """Runs a scorer's forward with cuDNN's TF32 off when it computes in
+    fp32, restoring the process's setting on return or raise; bf16 scoring
+    leaves the setting alone."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        if self.compute_dtype != torch.float32:
+            return method(self, *args, **kw)
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return method(self, *args, **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    return run
 
 
 def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
@@ -152,6 +175,7 @@ class VisualScorer:
             x = resize_bilinear(x, self.frame_size)
         return x
 
+    @_ieee_fp32
     def calibrate(self, frames_u8: np.ndarray, *, refine_passes: int = 0) -> None:
         """Fit the w8a8 activation scales on a representative uint8 frame
         batch ``(B, T, H, W, 3)`` and switch the backbone to the quantized
@@ -170,6 +194,7 @@ class VisualScorer:
             skip_middle=self.quantize == "w8a8-hybrid",
         )
 
+    @_ieee_fp32
     @torch.inference_mode()
     def frame_features(self, frames_u8: np.ndarray) -> torch.Tensor:
         """``(B, T, H, W, 3)`` uint8 -> per-frame features ``(B, T, 2048)`` in
@@ -190,6 +215,7 @@ class VisualScorer:
                                          **self.routes)
         return feats.reshape(B, T, -1)
 
+    @_ieee_fp32
     @torch.inference_mode()
     def score(self, frames_u8: np.ndarray, lengths: Optional[np.ndarray] = None) -> np.ndarray:
         """``(B, T, H, W, 3)`` uint8 -> fake probabilities ``(B,)``."""

@@ -64,9 +64,9 @@ def dw_taps(dw: torch.Tensor) -> torch.Tensor:
     return dw.float().reshape(dw.shape[0], 9).t().contiguous()
 
 
-def check_x(kernel: str, x: torch.Tensor, max_w: int = 512) -> None:
+def check_x(kernel: str, x: torch.Tensor) -> None:
     """The activation a kernel takes: NHWC-contiguous bf16/fp32 on CUDA,
-    16-byte aligned, N*H*W within int32, W within the depthwise band."""
+    16-byte aligned, N*H*W within int32 (any H and W)."""
     if not x.is_cuda:
         raise ValueError(f"{kernel}: x must be a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -78,9 +78,6 @@ def check_x(kernel: str, x: torch.Tensor, max_w: int = 512) -> None:
     N, H, W, _ = x.shape
     if N * H * W >= 2**31:
         raise ValueError(f"{kernel}: N*H*W must fit in int32")
-    if W > max_w:
-        raise ValueError(f"{kernel}: W={W} > {max_w} (the staged depthwise band outgrows "
-                         "shared memory)")
 
 
 def check_operands(kernel: str, x: torch.Tensor, specs) -> None:

@@ -12,18 +12,17 @@ pair stage is K4's (``csrc/sepconv_pair.cuh``, ``entry_pair.py``).
 What bounds it on an H100: at 256 frames of 256^2 each block is 192-400
 GFLOP of bf16 pointwise work (tensor cores) against one read of x and one
 pooled write (memory), so blocks 2, 3 and 12 are bound by operations and
-block 1 about evenly by both. The design is the simple form: the TPU kernel
-keeps every intermediate in VMEM, already rounded to bf16, so a sequence of
-launches that keeps them in device memory computes the same function at the
-same rounding points: a gather of x's even rows and columns, unit 0's
-depthwise, its pointwise GEMM (bias, ReLU), unit 1's depthwise and GEMM
-(bias), and the skip GEMM whose epilogue adds the skip bias and the 3x3/s2
-max of unit 1's output. The GEMMs are K1's (``csrc/bf16_gemm.cuh``), the
-depthwise K1's banded kernel with K3's tap order. Keeping ``mid`` and
-``outs`` on chip is later work. The TPU-only pieces are not carried over:
-the bordered ``W2`` storage, ``valid_w`` chaining, channels padded to 128
-lanes and stripe heights that divide H. The kernel takes and returns dense
-NHWC at any N, H and W (W up to 512).
+block 1 about evenly by both. The TPU kernel keeps every intermediate in
+VMEM, already rounded to bf16; the port keeps the two depthwise results on
+chip and ``mid`` and ``outs`` in device memory, at the same rounding points.
+Four launches: a gather of x's even rows and columns; unit 0 and unit 1,
+each a GEMM whose producer warps compute the unit's depthwise (K3's tap
+order) into the A tile (``csrc/dw_gemm.cuh``, K4's pair), with bias + ReLU
+into ``mid`` and bias into ``outs``; and the skip GEMM whose epilogue adds
+the skip bias and the 3x3/s2 max of ``outs``. The TPU-only pieces are not
+carried over: the bordered ``W2`` storage, ``valid_w`` chaining, channels
+padded to 128 lanes and stripe heights that divide H. The kernel takes and
+returns dense NHWC at any N, H and W.
 
 Rounding points match the TPU kernels: x is rounded to bf16 (also for fp32
 input); unit 0's depthwise reads ReLU(x) only with ``leading_relu0``; each
@@ -68,7 +67,7 @@ def entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: b
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("entry_block")
-    lib.mdfd_entry_block.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+    lib.mdfd_entry_block.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                                      + [ctypes.c_void_p])
     lib.mdfd_entry_block.restype = ctypes.c_int
     lib.mdfd_error_string.argtypes = [ctypes.c_int]
@@ -92,7 +91,7 @@ def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool)
 
     A CPU tensor takes :func:`entry_block_ref`. A CUDA tensor launches the
     kernel or raises: there is no fallback. ``entry_block.launches`` counts
-    kernel launches (one per call: the block's six CUDA launches).
+    kernel launches (one per call: the block's four CUDA launches).
     """
     if x.device.type == "cpu":
         return entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb,
@@ -105,11 +104,9 @@ def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool)
     out = torch.empty((N, Hp, Wp, Cout), dtype=x.dtype, device=x.device)
     scratch = lambda rows, cols: torch.empty((rows, cols), dtype=torch.bfloat16, device=x.device)
     M = N * H * W
-    a0, mid, a1, outs = scratch(M, ldk0), scratch(M, Cmid), scratch(M, ldk1), scratch(M, Cout)
-    xs = scratch(N * Hp * Wp, ldk0)
+    mid, outs, xs = scratch(M, Cmid), scratch(M, Cout), scratch(N * Hp * Wp, ldk0)
     err = lib.mdfd_entry_block(
-        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, out, a0, mid, a1, outs,
-                                 xs)),
+        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, out, mid, outs, xs)),
         N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -20,13 +20,13 @@ built by ``_build.py`` and bound through ``ctypes``.
 What bounds it on an H100: at 256 frames of 256^2 the pairs of the stride-2
 blocks 1 and 2 are bound by one read of x and one write of the output (0.46
 and 0.23 ms at 3.35 TB/s), those of blocks 3 and 12 by their bf16 pointwise
-work (376 and 166 GFLOP). The design is K3's pair stage (``csrc/
-sepconv_pair.cuh``, shared with ``entry_block.cu``): four launches, the two
-depthwise and the two GEMMs, with ``a0``, ``mid`` and ``a1`` in device
-memory; keeping them on chip is later work. The TPU-only storage is not
-carried over: the port takes and returns dense NHWC, with no bordered ``W2``
-columns, no channels padded to 128 lanes and no stripe heights that must
-divide H (W up to 512, up to 256 with an fp32 mid).
+work (376 and 166 GFLOP). The design (``csrc/sepconv_pair.cuh``, shared
+with ``entry_block.cu``) is two launches, one per unit, each a GEMM whose
+producer warps compute the unit's depthwise straight into the A tile
+(``csrc/dw_gemm.cuh``): the depthwise results never reach device memory;
+``mid`` does. The TPU-only storage is not carried over: the port takes and
+returns dense NHWC at any N, H and W, with no bordered ``W2`` columns, no
+channels padded to 128 lanes and no stripe heights that must divide H.
 
 Rounding points: x is rounded to bf16 (and ReLU'd with ``leading_relu0``);
 each depthwise takes fp32 products in the chosen order and is rounded to
@@ -70,17 +70,17 @@ def entry_pair_ref(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_su
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("entry_pair")
-    lib.mdfd_entry_pair.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.mdfd_entry_pair.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.mdfd_entry_pair.restype = ctypes.c_int
     lib.mdfd_error_string.argtypes = [ctypes.c_int]
     lib.mdfd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check_pair(kernel: str, x, dw0, pw0, b0, dw1, pw1, b1, *, max_w: int = 512) -> None:
+def check_pair(kernel: str, x, dw0, pw0, b0, dw1, pw1, b1) -> None:
     """The pair's operands, as :func:`pack_pair` returns them, for a CUDA
     ``x``; shared with K3."""
-    check_x(kernel, x, max_w)
+    check_x(kernel, x)
     if pw0.dim() != 2 or pw1.dim() != 2:
         raise ValueError(f"{kernel}: pw0 and pw1 must be 2-D [out, in] matrices")
     Cin = x.shape[-1]
@@ -108,24 +108,21 @@ def entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_sums: 
 
     A CPU tensor takes :func:`entry_pair_ref`. A CUDA tensor launches the
     kernel or raises: there is no fallback. ``entry_pair.launches`` counts
-    kernel launches (one per call: the pair's four CUDA launches).
+    kernel launches (one per call: the pair's two CUDA launches, one per
+    unit).
     """
     kw = dict(leading_relu0=leading_relu0, col_sums=col_sums, mid_fp32=mid_fp32)
     if x.device.type == "cpu":
         return entry_pair_ref(x, dw0, pw0, b0, dw1, pw1, b1, **kw)
-    # the fp32 band of unit 1's depthwise: 3 rows of (W + 2) x 64 x 4 bytes
-    check_pair("entry_pair", x, dw0, pw0, b0, dw1, pw1, b1, max_w=256 if mid_fp32 else 512)
+    check_pair("entry_pair", x, dw0, pw0, b0, dw1, pw1, b1)
     lib = _lib()
     N, H, W, Cin = x.shape
     (Cmid, ldk0), (Cout, ldk1) = pw0.shape, pw1.shape
-    M = N * H * W
     out = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
-    scratch = lambda cols, dtype=torch.bfloat16: torch.empty((M, cols), dtype=dtype,
-                                                             device=x.device)
-    a0, a1 = scratch(ldk0), scratch(ldk1)
-    mid = scratch(Cmid, torch.float32 if mid_fp32 else torch.bfloat16)
+    mid = torch.empty((N * H * W, Cmid), dtype=torch.float32 if mid_fp32 else torch.bfloat16,
+                      device=x.device)
     err = lib.mdfd_entry_pair(
-        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, out, a0, mid, a1)),
+        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, out, mid)),
         N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(col_sums), int(mid_fp32),
         int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
     )

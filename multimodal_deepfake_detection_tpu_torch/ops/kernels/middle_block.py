@@ -18,7 +18,7 @@ GEMM operands get rows padded to 32 elements: the packed pointwise weight is
 ``(reps, C, ldk)`` and the depthwise result ``(N*H*W, ldk)``. Fusing the
 depthwise into the GEMM's A-tile load is later work. The TPU layout ``(H*W, B, C)`` and its batch
 padding to 8 existed for the TPU's tiling and are not carried over: this
-kernel works on NHWC at any N and H, and W up to 512.
+kernel works on NHWC at any N, H and W.
 
 Rounding points match ``_pos_kernel``: each rep's input is ReLU'd and rounded
 to bf16; the 9 taps accumulate in fp32 dy-major; the sum is rounded to bf16

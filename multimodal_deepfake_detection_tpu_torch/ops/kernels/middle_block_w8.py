@@ -101,9 +101,6 @@ def _check(x, dw, pw_q, s_w, s_in, s_dq, b) -> None:
                          f"length {ldk} >= C a multiple of 16")
     if N * H * W >= 2**31:
         raise ValueError("middle_block_w8: N*H*W must fit in int32")
-    if W > 512:
-        raise ValueError(f"middle_block_w8: W={W} > 512 (the staged depthwise band outgrows "
-                         "shared memory)")
     for name, t, shape, dtype in (
         ("dw", dw, (reps, 9, C), torch.float32),
         ("pw_q", pw_q, (reps, C, ldk), torch.int8),

@@ -113,6 +113,26 @@ def test_ref_matches_jax_striped_entry_block(H, Cin, Cmid, Cout, lead, SH):
            ref.astype(jnp.float32), f"striped H={H} SH={SH}")
 
 
+@pytest.mark.parametrize("H,W,lead,striped", [(3, 521, True, False), (4, 514, False, True)])
+def test_ref_matches_jax_at_widths_past_512(H, W, lead, striped):
+    """One short image wider than the first design's depthwise band took
+    (512): the whole-image kernel, and the striped one in 2-row stripes."""
+    rng = np.random.default_rng(W)
+    Cin, Cmid, Cout = 8, 16, 8
+    xj = jnp.asarray(rng.standard_normal((1, H, W, Cin)) * 0.5, jnp.bfloat16)
+    ops = _operands(rng, Cin, Cmid, Cout)
+    jops = map(jnp.asarray, ops)
+    if striped:
+        ref = jax_entry_block_striped(xj, *jops, leading_relu0=lead, stripe_rows=2, row_chunk=96,
+                                      interpret=True)
+    else:
+        ref = jax_entry_block(xj, *jops, leading_relu0=lead, row_chunk=96, interpret=True)
+    x = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = entry_block(x, *_port_operands(ops), leading_relu0=lead)
+    assert tuple(got.shape) == (1, (H + 1) // 2, (W + 1) // 2, Cout)
+    _check(got, ref.astype(jnp.float32), f"W={W} striped={striped}")
+
+
 @pytest.mark.parametrize("H", [1, 2])
 def test_ref_on_tiny_images(H):
     """1x1 and 2x2 inputs (the exit flow of tiny frames): most taps and pool

@@ -51,6 +51,7 @@ BF16_TOL = 1.6e-2
 JAX_SHAPE = (3, 11, 7, 8, 16, 24)  # tests/test_pallas_stream.py's
 C40 = (2, 6, 5, 40, 40, 48)  # rows padded 40 -> 64
 TINY = (3, 2, 2, 16, 24, 8)
+WIDE = (1, 3, 520, 8, 16, 8)  # wider than the first design's depthwise band took (512)
 
 
 def _bf16_values(a):
@@ -95,7 +96,7 @@ def _port(port, dtype, **switches):
 @pytest.mark.parametrize("shape,lead,dtype", [
     (JAX_SHAPE, False, "float32"), (JAX_SHAPE, True, "float32"),
     (JAX_SHAPE, False, "bfloat16"), (JAX_SHAPE, True, "bfloat16"),
-    (C40, True, "bfloat16"), (TINY, False, "float32"),
+    (C40, True, "bfloat16"), (TINY, False, "float32"), (WIDE, True, "bfloat16"),
 ])
 def test_ref_matches_jax_entry_pair(shape, lead, dtype):
     """``entry_pair_pallas``'s valid columns ``[1:W+1]`` and ``entry_pair``."""
@@ -113,6 +114,7 @@ def test_ref_matches_jax_entry_pair(shape, lead, dtype):
     (JAX_SHAPE, False, "float32", 11), (JAX_SHAPE, True, "float32", 11),
     (JAX_SHAPE, False, "float32", 32), (JAX_SHAPE, True, "float32", 32),
     (JAX_SHAPE, True, "bfloat16", 4), (C40, True, "bfloat16", 4), (TINY, False, "float32", 32),
+    (WIDE, False, "float32", 2),
 ])
 def test_ref_matches_jax_stream(shape, lead, dtype, stripes):
     """The stream kernel: dy-major taps and an fp32 mid, at its test's stripe
@@ -129,6 +131,7 @@ def test_ref_matches_jax_stream(shape, lead, dtype, stripes):
     (JAX_SHAPE, False, "float32", True, 11), (JAX_SHAPE, True, "float32", True, 11),
     (JAX_SHAPE, True, "bfloat16", False, 1), (JAX_SHAPE, True, "bfloat16", True, 1),
     (C40, True, "bfloat16", True, 3), (TINY, False, "float32", False, 2),
+    (WIDE, True, "bfloat16", True, 3), (WIDE, False, "bfloat16", False, 1),
 ])
 def test_ref_matches_jax_stream2(shape, lead, dtype, dx_roll, stripes):
     """Stream2: bf16 mid; dy-major taps without ``dx_roll``, column sums

@@ -1,0 +1,89 @@
+"""``VisualScorer(compute_dtype=torch.float32)`` is IEEE fp32: its forwards
+run with cuDNN's TF32 switched off, and the process's setting comes back
+when they return or raise. bf16 scoring leaves the setting alone.
+
+A probe module in the backbone's place (or in the calibration's) reads the
+flag while the forward runs; the CPU build carries the same flag as the
+card's.
+"""
+import numpy as np
+import pytest
+import torch
+
+from multimodal_deepfake_detection_tpu_torch.models import serve
+from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
+from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+HIDDEN = 8
+
+
+class Probe(torch.nn.Module):
+    """Stands in for the folded backbone: records cuDNN's TF32 flag on each
+    call and returns zero features, or raises if ``fail``."""
+
+    def __init__(self, fail=False):
+        super().__init__()
+        self.seen, self.fail = [], fail
+
+    def forward(self, x, **kw):
+        self.seen.append(torch.backends.cudnn.allow_tf32)
+        if self.fail:
+            raise RuntimeError("probe")
+        return torch.zeros((x.shape[0], 2048), dtype=x.dtype)
+
+
+@pytest.fixture(scope="module")
+def parts():
+    g = torch.Generator().manual_seed(0)
+    return XceptionLSTM(HIDDEN, generator=g), ArcFace(HIDDEN, 2, generator=g)
+
+
+@pytest.fixture
+def tf32_on(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+
+
+def _frames():
+    return np.random.default_rng(0).integers(0, 256, (2, 3, 8, 8, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("method", ["score", "frame_features"])
+def test_fp32_forward_runs_without_tf32(parts, tf32_on, method):
+    scorer = VisualScorer(*parts, compute_dtype=torch.float32, device="cpu")
+    scorer.folded_backbone = probe = Probe()
+    getattr(scorer, method)(_frames())
+    assert probe.seen == [False]
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_fp32_calibration_runs_without_tf32(parts, tf32_on, monkeypatch):
+    seen = []
+
+    def calibrate_amax(*args, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        raise RuntimeError("probe")
+
+    monkeypatch.setattr(serve, "calibrate_amax", calibrate_amax)
+    scorer = VisualScorer(*parts, compute_dtype=torch.float32, quantize="w8a8", device="cpu")
+    with pytest.raises(RuntimeError, match="probe"):
+        scorer.calibrate(_frames())
+    assert seen == [False] and torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("method", ["score", "frame_features"])
+def test_fp32_flag_restored_after_an_exception(parts, tf32_on, method):
+    scorer = VisualScorer(*parts, compute_dtype=torch.float32, device="cpu")
+    scorer.folded_backbone = probe = Probe(fail=True)
+    with pytest.raises(RuntimeError, match="probe"):
+        getattr(scorer, method)(_frames())
+    assert probe.seen == [False]
+    assert torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_bf16_scoring_leaves_the_flag_alone(parts, monkeypatch, flag):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+    scorer = VisualScorer(*parts, device="cpu")
+    scorer.folded_backbone = probe = Probe()
+    scorer.score(_frames())
+    assert probe.seen == [flag] and torch.backends.cudnn.allow_tf32 == flag

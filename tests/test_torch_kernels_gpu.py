@@ -1,16 +1,24 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
 Marked ``gpu``; skips where CUDA is absent. Run on a machine with an H100:
-``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``. TF32 is
-off so the plain versions' fp32 matmuls are exact on bf16 operands. K1's
-bound (either tap order) is the CPU test's bf16 bound (rtol = atol = 1.6e-2)
-plus mean |d| <= 1e-3, and so are K3's, K4's (every switch setting) and
-K5's; K2 and the int8 depthwise have exact integer paths and are held to bit
-equality.
+``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``. The
+kernel tests switch TF32 off for their duration so the plain versions' fp32
+matmuls are exact on bf16 operands. K1's bound (either tap order) is the CPU
+test's bf16 bound (rtol = atol = 1.6e-2) plus mean |d| <= 1e-3, and so are
+K3's, K4's (every switch setting) and K5's; K2 and the int8 depthwise have
+exact integer paths and are held to bit equality. Frames wider than the
+kernels once took (W > 512 in a stride-2 block, > 1024 in the int8
+depthwise) are scored through the routes against their plain paths, and
+the fp32 scorer is held to the CPU's IEEE fp32 with torch's default TF32
+flags left in force.
 """
+import numpy as np
 import pytest
 import torch
 
+from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
+from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+from multimodal_deepfake_detection_tpu_torch.ops.conv import BatchNorm
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
     entry_block,
@@ -40,10 +48,22 @@ pytestmark = pytest.mark.gpu
 
 @pytest.fixture
 def cuda():
+    """The device, with TF32 off for the test and torch's flags restored after."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.fixture
+def cuda_default_flags():
+    """The device with torch's own TF32 defaults in force (cuDNN may use TF32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     return torch.device("cuda")
 
 
@@ -110,18 +130,27 @@ def _rows(g, out, k, device):
     return w.to(device, torch.bfloat16)
 
 
+# the pairs / blocks of the four stride-2 blocks of 256 frames at 256^2
+MAIN_BLOCKS = [(256, 125, 125, 64, 128, 128, torch.bfloat16, False),
+               (256, 63, 63, 128, 256, 256, torch.bfloat16, True),
+               (256, 32, 32, 256, 728, 728, torch.bfloat16, True),
+               (256, 16, 16, 728, 728, 1024, torch.bfloat16, True)]
+
+
 @pytest.mark.parametrize("col_sums,mid_fp32", [(True, False), (False, True), (False, False)])
 @pytest.mark.parametrize(
     "N,H,W,Cin,Cmid,Cout,dtype,lead",
-    [(15, 29, 29, 64, 128, 128, torch.bfloat16, False), (3, 1, 1, 728, 728, 1024, torch.bfloat16, True),
+    MAIN_BLOCKS + [
+     (15, 29, 29, 64, 128, 128, torch.bfloat16, False), (3, 1, 1, 728, 728, 1024, torch.bfloat16, True),
      (3, 2, 2, 256, 728, 728, torch.bfloat16, True), (5, 3, 3, 128, 256, 256, torch.bfloat16, True),
-     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True)],
+     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True),
+     (1, 3, 1100, 64, 128, 128, torch.bfloat16, False), (1, 2, 700, 64, 40, 24, torch.float32, True)],
 )
 def test_entry_pair_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, lead, col_sums,
                                          mid_fp32):
     """K4 with each entry point's switches: ``entry_pair_pallas`` and stream2
     with ``dx_roll`` (column sums), the stream kernel (fp32 mid), stream2
-    without ``dx_roll``."""
+    without ``dx_roll``; at the main shapes, edge shapes and widths past 512."""
     g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
     vec = lambda *shape, s: (torch.randn(shape, generator=g) * s).to(cuda)
     x = torch.randn((N, H, W, Cin), generator=g).to(cuda, dtype)
@@ -167,9 +196,11 @@ def test_middle_block_rejects_non_contiguous(cuda):
 
 @pytest.mark.parametrize(
     "N,H,W,Cin,Cmid,Cout,dtype,lead",
-    [(15, 29, 29, 64, 128, 128, torch.bfloat16, False), (15, 4, 4, 728, 728, 1024, torch.bfloat16, True),
+    MAIN_BLOCKS + [
+     (15, 29, 29, 64, 128, 128, torch.bfloat16, False), (15, 4, 4, 728, 728, 1024, torch.bfloat16, True),
      (3, 1, 1, 728, 728, 1024, torch.bfloat16, True), (3, 2, 2, 256, 728, 728, torch.bfloat16, True),
-     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True)],
+     (4, 13, 21, 40, 16, 24, torch.bfloat16, False), (5, 15, 15, 128, 256, 256, torch.float32, True),
+     (1, 3, 1101, 64, 128, 128, torch.bfloat16, False)],
 )
 def test_entry_block_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, lead):
     """K3; the packed rows' padding past Cin / Cmid holds NaN, which the
@@ -255,3 +286,111 @@ def test_conv2d_w8a8_pads_for_int_mm(cuda, N, H, Ci, k, stride):
     got = conv2d_w8a8(x.to(cuda), w_q.to(cuda), s_w.to(cuda), s_in.to(cuda), b.to(cuda),
                       stride=stride, out_dtype=torch.float32)
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["middle_block", "middle_block_bf16taps", "middle_block_w8",
+                                    "sepconv_unit", "dw_w8a8"])
+def test_kernels_take_any_width(cuda, kernel):
+    """Widths the first design's depthwise band refused (K1, K2, K5 at W >
+    512, the int8 depthwise at W > 1024), at N = 1 and 3 rows."""
+    g = torch.Generator().manual_seed(11)
+    W = 2100 if kernel == "dw_w8a8" else 1100
+    C = 64
+    x = torch.randn((1, 3, W, C), generator=g).to(cuda, torch.bfloat16)
+    if kernel == "dw_w8a8":
+        w_q = torch.randint(-127, 128, (C, 1, 3, 3), generator=g, dtype=torch.int8).to(cuda)
+        s_in = ((2.5 / 127.0) * (0.5 + 1.5 * torch.rand(C, generator=g))).to(cuda)
+        sc = (1e-3 * (0.5 + torch.rand(C, generator=g))).to(cuda)
+        assert torch.equal(dw_w8a8(x, w_q, s_in, sc, x.dtype), dw_w8a8_ref(x, w_q, s_in, sc, x.dtype))
+    elif kernel == "middle_block_w8":
+        ops = (x, (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda),
+               torch.randint(-127, 128, (3, C, C), generator=g, dtype=torch.int8).to(cuda),
+               (torch.rand((3, C), generator=g) * 1e-2 + 1e-3).to(cuda),
+               torch.full((3, C), 2.5 / 127.0, device=cuda), torch.full((3,), 2.5 / 127.0, device=cuda),
+               (torch.randn((3, C), generator=g) * 0.1).to(cuda))
+        assert torch.equal(middle_block_w8(*ops), middle_block_w8_ref(*ops))
+    elif kernel == "sepconv_unit":
+        ops = (x, (torch.randn((9, C), generator=g) * 0.3).to(cuda), _rows(g, 48, C, cuda),
+               (torch.randn(48, generator=g) * 0.1).to(cuda))
+        kw = dict(leading_relu=True, trailing_relu=True)
+        _close(sepconv_unit(*ops, **kw), sepconv_unit_ref(*ops, **kw))
+    else:
+        taps = "bf16" if kernel == "middle_block_bf16taps" else "fp32"
+        pw = torch.randn((3, C, C), generator=g) / C ** 0.5
+        ops = (x, (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda), pw.to(cuda, torch.bfloat16),
+               (torch.randn((3, C), generator=g) * 0.1).to(cuda))
+        _close(middle_block(*ops, taps=taps), middle_block_ref(*ops, taps=taps))
+
+
+def _scorer_parts(seed=0, hidden=16):
+    """A seeded XceptionLSTMV + ArcFace with random BN statistics (so the fold
+    is exercised), as chip_smoke.py builds its bundle."""
+    g = torch.Generator().manual_seed(seed)
+    model = XceptionLSTM(hidden, generator=g)
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
+            n = bn.mean.shape[0]
+            bn.scale.copy_(0.8 + 0.4 * torch.rand(n, generator=g))
+            bn.bias.copy_(0.05 * torch.randn(n, generator=g))
+            bn.mean.copy_(0.1 * torch.randn(n, generator=g))
+            bn.var.copy_(0.5 + torch.rand(n, generator=g))
+    return model, ArcFace(hidden, 2, generator=g)
+
+
+def _frames(T, H, W, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (1, T, H, W, 3), dtype=np.uint8)
+
+
+def _outputs(scorer, frames):
+    return scorer.score(frames), scorer.frame_features(frames).double().reshape(-1, 2048)
+
+
+def _held(got, ref, cos_min, score_tol):
+    cos = torch.nn.functional.cosine_similarity(got[1].cpu(), ref[1].cpu(), dim=-1).min().item()
+    score_d = float(np.abs(got[0] - ref[0]).max())
+    print(f"1 - cos {1 - cos:.3e}, score |d| {score_d:.3e}")
+    assert cos >= cos_min and score_d <= score_tol
+
+
+@pytest.mark.parametrize("route,W_in", [("fuse_entry", 1100), ("entry_pair", 1100),
+                                        ("w8a8-pallas", 2100)])
+def test_wide_frames_score_through_the_kernels(cuda, route, W_in):
+    """Frames whose stride-2 blocks are wider than 512 (``fuse_entry``,
+    ``entry_pair``) or whose int8 depthwise is wider than 1024
+    (``w8a8-pallas``), 40 rows high, against the plain path: the fp routes
+    against plain fp32 at the fp bars (PERF.md §2), w8a8-pallas against the
+    plain quantized path on the same calibrated tree at its kernel bars."""
+    model, arc = _scorer_parts()
+    frames = _frames(2, 40, W_in)
+    if route == "w8a8-pallas":
+        kern = VisualScorer(model, arc, quantize=route, device=cuda)
+        kern.calibrate(frames)
+        plain = VisualScorer(model, arc, quantize=route, use_kernels=False, device=cuda)
+        plain.qbackbone = kern.qbackbone
+        counter, per_call, bars = dw_w8a8, 10, (1 - 2e-6, 5e-4)
+    else:
+        kern = VisualScorer(model, arc, device=cuda, **{route: True})
+        plain = VisualScorer(model, arc, compute_dtype=torch.float32, use_kernels=False,
+                             device=cuda)
+        counter = entry_block if route == "fuse_entry" else entry_pair
+        per_call, bars = 4, (0.999, 2e-2)
+    before = counter.launches
+    got = _outputs(kern, frames)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2 * per_call  # score and frame_features
+    _held(got, _outputs(plain, frames), *bars)
+
+
+def test_fp32_scorer_is_ieee_under_default_flags(cuda_default_flags):
+    """compute_dtype=float32 on the card, with torch's default TF32 flags in
+    force, holds the plain fp32 bars against the CPU's IEEE fp32 (features
+    rtol 1e-3 / atol 2e-4, scores atol 1e-4), and leaves the flags as it
+    found them."""
+    model, arc = _scorer_parts()
+    frames = _frames(3, 64, 64)
+    kw = dict(compute_dtype=torch.float32, use_kernels=False)
+    got = _outputs(VisualScorer(model, arc, device=cuda_default_flags, **kw), frames)
+    assert torch.backends.cudnn.allow_tf32
+    ref = _outputs(VisualScorer(model, arc, device="cpu", **kw), frames)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(got[0], ref[0], atol=1e-4)
