@@ -37,7 +37,10 @@ raises and exits non-zero:
 5. times on the card (CUDA events after warmup): each kernel against its
    plain version and against PyTorch's own calls for the same function (K3
    per stride-2 block, K4 per stride-2 pair beside the first design's
-   four-launch pair (two K5 units), K5 per exit conv, of 256 frames), and
+   four-launch pair (two K5 units), K5 per exit conv, of 256 frames; K1's
+   two halves per launch by ``torch.profiler`` beside their bounds and
+   cuDNN's depthwise and cuBLAS's ``addmm`` alone, one K1 block being 6
+   device launches, 3 of each half), and
    the slice's frames/s, fp (plain, K1, each route) and w8a8,
    in turns; then the device busy share and the top kernels of one scored
    batch per kernel path (``torch.profiler``).
@@ -82,7 +85,18 @@ K1_SHAPES = (  # (N, H=W, C, dtype name, row length of the packed pointwise weig
     (1, 1, 728, "bfloat16", 736),
     (15, 4, 728, "float32", 736),
     (4, 8, 40, "bfloat16", 64),
+    # the persistent GEMM: a ragged last M tile over many waves, with 1,456-byte
+    # rows in every tensor map too
+    (257, 16, 728, "bfloat16", 736),
+    (257, 16, 728, "bfloat16", 728),
 )
+# K1's bit-equal share against its plain version at 256 frames (seed 0),
+# per tap order, which the persistent GEMM must not lower: the one-tile GEMM
+# with a register epilogue read 0.986964 and 0.987722 on the same operands
+# (NVIDIA H100 80GB HBM3, 700 W; ``chip_variants.py --against`` finds the
+# two designs' outputs identical); the floors sit one millionth below for
+# the printed rounding
+K1_BIT_EQUAL_256 = {"fp32": 0.986963, "bf16": 0.987721}
 K2_SHAPES = (  # (N, H=W, C, dtype name); pw_q rows padded to 64 bytes
     (256, 16, 728, "bfloat16"),
     (15, 4, 728, "bfloat16"),
@@ -226,9 +240,10 @@ def phase_build():
         f"{' '.join(_build.NVCC_FLAGS[:2])})")
 
 
-def compare(torch, label, got, ref, *, int8=False) -> float:
+def compare(torch, label, got, ref, *, int8=False, equal_min=0.0) -> float:
     """Bounds: finite; for the int8 kernels >= 99.9 % bit-equal; the rest
-    within two bf16 ulps (relative and absolute); mean |d| <= 1e-3."""
+    within two bf16 ulps (relative and absolute); mean |d| <= 1e-3; at
+    least ``equal_min`` of the outputs bit-equal."""
     got, ref = got.float(), ref.float()
     d = (got - ref).abs()
     max_d, mean_d = d.max().item(), d.mean().item()
@@ -236,7 +251,7 @@ def compare(torch, label, got, ref, *, int8=False) -> float:
     bound_ok = bool((d <= BF16_TOL + BF16_TOL * ref.abs()).all().item())
     say(f"{label}: max|d|={max_d:.3e} mean|d|={mean_d:.3e} bit-equal={equal:.6f}")
     if not (bound_ok and mean_d <= MEAN_TOL and torch.isfinite(got).all()
-            and (equal >= BIT_EQUAL_MIN or not int8)):
+            and (equal >= BIT_EQUAL_MIN or not int8) and equal >= equal_min):
         raise AssertionError(f"{label}: the kernel disagrees with its plain version")
     return max_d
 
@@ -342,7 +357,8 @@ def phase_kernels(torch) -> dict:
             torch.cuda.synchronize()
             worst[name] = max(worst[name], compare(
                 torch, f"K1 {taps} taps ({N},{H},{H},{C}) {dtype} ldk={ldk}", got,
-                middle_block_ref(*ops, taps=taps)))
+                middle_block_ref(*ops, taps=taps),
+                equal_min=K1_BIT_EQUAL_256[taps] if N == 256 else 0.0))
     for i, (N, H, C, dtype) in enumerate(K2_SHAPES):
         ops = k2_operands(torch, N, H, C, dtype, seed=100 + i)
         got = middle_block_w8(*ops)
@@ -426,17 +442,32 @@ def phase_kernels(torch) -> dict:
     return worst
 
 
-def device_launches(torch, fn) -> int:
-    """The number of kernels the device ran for one ``fn()``, by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+def device_kernels(torch, fn, attempts: int = 3) -> list:
+    """``torch.profiler``'s device kernels of one ``fn()``, each attempt
+    after a warm-up step. On the card the profiler can lose kernel records
+    (it never adds any): the attempt that saw the most launches is kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    best = []
+    for _ in range(attempts):
+        events = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if sum(e.count for e in events) > sum(e.count for e in best):
+            best = events
+    return best
+
+
+def device_launches(torch, fn) -> int:
+    """The number of kernels the device ran for one ``fn()``."""
+    return sum(e.count for e in device_kernels(torch, fn))
 
 
 def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None:
@@ -853,6 +884,7 @@ def phase_times(torch, smi: str, workdir: str):
     say(f"time K1 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
         f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
         f"cuDNN + cuBLAS {ms['library']:.4f} ms; runs {runs} [{smi}]")
+    k1_halves(torch, x, dw, pw, b, smi)
     # the bf16-tap K1 per middle block, beside the fp32-tap K1 in the same turns
     ms, runs = in_turns(torch, {
         "plain": lambda: middle_block_ref(x, dw, pw, b, taps="bf16"),
@@ -934,6 +966,52 @@ def phase_times(torch, smi: str, workdir: str):
     profiled = ("fp K1", "fp K1+K3", "fp routes (K1 bf16 taps+K4+K5)", "w8a8-pallas")
     profile_calls(torch, {k: scorers[k] for k in profiled}, frames, smi)
     return times
+
+
+def k1_halves(torch, x, dw, pw, b, smi: str) -> None:
+    """One K1 block's two halves: device time per launch by ``torch.profiler``
+    beside each half's bound and, as yardsticks the port never calls,
+    cuDNN's depthwise and cuBLAS's ``addmm`` alone at the same shapes; the
+    two-launch floor (the A operand through device memory). Fails unless
+    the block is 6 device launches, 3 of each half."""
+    import torch.nn.functional as F
+
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import middle_block
+
+    N, H, W, C = x.shape
+    M, ldk = N * H * W, pw.shape[-1]
+    halves = {}
+    for e in device_kernels(torch, lambda: middle_block(x, dw, pw, b)):
+        half = ("depthwise" if "dw3x3" in e.key else
+                "GEMM with residual" if "persistent_kernel" in e.key and ", true>" in e.key else
+                "GEMM" if "persistent_kernel" in e.key else e.key[:80])
+        us, n = halves.get(half, (0.0, 0))
+        halves[half] = (us + e.self_device_time_total, n + e.count)
+    counts = {half: n for half, (_, n) in halves.items()}
+    say(f"device launches of one K1 block: {counts}")
+    if counts != {"depthwise": 3, "GEMM": 2, "GEMM with residual": 1}:
+        raise AssertionError(f"one K1 block launched {counts}: 6 kernels, 3 depthwise and "
+                             "2 + 1 GEMM, expected")
+    a = torch.relu(x).permute(0, 3, 1, 2)
+    taps = dw[0].t().reshape(C, 1, 3, 3).to(x.dtype)
+    y = torch.randn((M, C), device=x.device).to(x.dtype)
+    pw_t = pw[0, :, :C].t()
+    bias = b[0].to(x.dtype)
+    lib, _ = in_turns(torch, {
+        "cuDNN depthwise": lambda: F.conv2d(a, taps, padding=1, groups=C),
+        "cuBLAS addmm": lambda: torch.addmm(bias, y, pw_t),
+    }, 20)
+    bytes_mm = (M * ldk + M * C + C * ldk) * 2  # A, out, the weight
+    bound_dw = (M * C + M * ldk) * 2 / PEAK_BYTES * 1e6
+    bound_mm = max(bytes_mm / PEAK_BYTES, 2 * M * C * C / PEAK_BF16) * 1e6
+    bound_res = max((bytes_mm + M * C * 2) / PEAK_BYTES, 2 * M * C * C / PEAK_BF16) * 1e6
+    floor = (3 * bound_dw + 2 * bound_mm + bound_res) / 1e3
+    say(f"time K1 halves ({N},{H},{W},{C}) bf16, device us per launch: "
+        + ", ".join(f"{k} {us / n:.2f} (x{n})" for k, (us, n) in halves.items())
+        + f"; bounds: depthwise {bound_dw:.1f} (bytes), GEMM {bound_mm:.1f} (operations), with "
+        f"the residual {bound_res:.1f} (bytes); yardsticks: cuDNN depthwise "
+        f"{lib['cuDNN depthwise'] * 1e3:.2f}, cuBLAS addmm {lib['cuBLAS addmm'] * 1e3:.2f}; "
+        f"two-launch floor {floor:.4f} ms per block [{smi}]")
 
 
 def time_k3(torch, scorer, smi: str):

@@ -1,19 +1,29 @@
-// The bf16 pointwise GEMM shared by K1 (middle_block.cu), K3's skip GEMM
-// (entry_block.cu) and K5 (sepconv_unit.cu) for Hopper, sm_90a; its
-// wgmma, descriptor and operand-map helpers also serve dw_gemm.cuh (K3's
-// and K4's pair):
+// The bf16 pointwise GEMM of the hand-written kernels for Hopper, sm_90a:
 //     out[M, N] = epilogue(A[M, K] @ Bt[N, K]^T)
 // bf16 operands, fp32 accumulation, Hopper's warpgroup MMA. A CTA is three
 // warpgroups: one thread of the first issues TMA loads, the other two
 // compute a 128 x 256 tile, 64 rows each (wgmma m64n256k16). Both operands
 // are K-major (A rows are pixels, Bt rows are output channels), staged 64
-// K-wide (128-byte rows) in the canonical 128-byte-swizzled layout, 4 stages
-// deep: a stage's "full" mbarrier completes when its bytes land, its "empty"
-// one when both consumers are done with it. TMA zero-fills the ragged K and
-// N edges. The epilogue is a functor that works from the accumulator
-// registers and masks M and N itself; one with kStaged first fills the
-// freed stage memory from device memory (`stage`), all consumer threads
-// together, and then reads it back beside the accumulators.
+// K-wide (128-byte rows) in the canonical 128-byte-swizzled layout: a
+// stage's "full" mbarrier completes when its bytes land, its "empty" one
+// when both consumers are done with it. TMA zero-fills the ragged K and N
+// edges. Two kernels:
+//   - gemm_kernel (K3's skip GEMM, entry_block.cu; K5, sepconv_unit.cu): one
+//     tile per CTA, 4 stages; the epilogue is a functor that works from the
+//     accumulator registers and masks M and N itself; one with kStaged
+//     first fills the freed stage memory from device memory (`stage`), all
+//     consumer threads together, and then reads it back beside the
+//     accumulators.
+//   - persistent_kernel (K1, middle_block.cu): one CTA per SM walks its
+//     tiles gridDim.x apart, N tiles fastest (the N tiles of one A tile run
+//     together, so A comes from L2); the stage ring runs across tiles, so
+//     the producer loads the next tile's k-tiles while the consumers run
+//     this tile's epilogue. Each consumer warpgroup writes acc + bias (+ the
+//     residual) through its own swizzled staging buffer, which TMA stores,
+//     clipped at M and N (store_tile); the residual arrives by TMA in the
+//     same buffer while the k-loop runs.
+// store_tile and the wgmma, descriptor and operand-map helpers also serve
+// dw_gemm.cuh (K3's and K4's pair).
 #pragma once
 
 #include "sm90_common.cuh"
@@ -158,6 +168,217 @@ struct BiasEpilogue {
   }
 };
 
+// One consumer warpgroup's epilogue: acc + bias [-> ReLU] [+ residual] of
+// the 64 x 256 tile at (m0, n0) -> OutT, through `staged` (STAGED bytes of
+// 64-row boxes of 128-byte rows in the 128-byte swizzle) and TMA stores into
+// map_out's (M, N), which clip at M and N; a tile at or past M stores
+// nothing. A pass covers the columns `staged` holds (bf16 in 32 KB: all 256
+// at once; fp32: 128); before a pass overwrites `staged`, thread 0 waits
+// until the stores of the last pass have read it. With RESID the pass's
+// residual (map_res's same tile, the output's dtype) lies in `staged`,
+// loaded by TMA on res_full: the caller issues the first pass's
+// (load_boxes); the later passes' load here once `staged` is free. The sum
+// is (acc + bias) + residual in fp32, the plain version's order. `bar`
+// names the warpgroup's barrier. The accumulator layout is wgmma's: warp w
+// holds rows 16w + lane/4 and +8, d[4j .. 4j+3] columns 8j + 2*(lane%4)
+// and the next, upper row then lower.
+struct Residual {
+  const CUtensorMap* map;
+  uint64_t* full;  // one phase per pass
+  unsigned uses;   // phases waited so far
+};
+
+constexpr int BOX_BYTES = 64 * 128;  // a staged box: 64 rows of 128 bytes
+
+// The boxes of one pass of `staged` from map's rows m0.., columns c0..,
+// completing on `full`; boxes at or past N are not loaded. One thread.
+template <typename T, int STAGED>
+__device__ __forceinline__ void load_boxes(const CUtensorMap* map, unsigned char* staged, int m0,
+                                           int c0, int N, uint64_t* full) {
+  constexpr int BOX_COLS = 128 / static_cast<int>(sizeof(T));
+  constexpr int BOXES = STAGED / BOX_BYTES;
+  int live = 0;
+#pragma unroll
+  for (int box = 0; box < BOXES; ++box) live += c0 + box * BOX_COLS < N;
+  mbar_expect_tx(full, live * BOX_BYTES);
+#pragma unroll
+  for (int box = 0; box < BOXES; ++box)
+    if (c0 + box * BOX_COLS < N) tma_load(staged + box * BOX_BYTES, map, c0 + box * BOX_COLS, m0, full);
+}
+
+template <typename OutT, bool RELU_OUT, int STAGED = 4 * BOX_BYTES, bool RESID = false>
+__device__ __forceinline__ void store_tile(const float* d, const CUtensorMap* map_out,
+                                           const float* __restrict__ bias,
+                                           unsigned char* staged, int m0, int n0, int M, int N,
+                                           int ctid, int bar = 1, Residual* res = nullptr) {
+  constexpr int BOX_COLS = 128 / static_cast<int>(sizeof(OutT));  // columns per 128-byte row
+  constexpr int PASS_COLS = STAGED / BOX_BYTES * BOX_COLS;
+  constexpr int JP = PASS_COLS / 8;  // accumulator groups a pass
+  static_assert(BN % PASS_COLS == 0, "a pass holds a whole number of boxes");
+  if (m0 >= M) return;  // the warpgroup's rows all lie past M
+  const int lane = ctid & 31;
+  const int r = ((ctid >> 5) & 3) * 16 + (lane >> 2);  // upper row; lower is r + 8
+#pragma unroll
+  for (int pass = 0; pass < BN / PASS_COLS; ++pass) {
+    if (ctid == 0) {
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      if constexpr (RESID) {
+        if (pass > 0)
+          load_boxes<OutT, STAGED>(res->map, staged, m0, n0 + pass * PASS_COLS, N, res->full);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+    if constexpr (RESID) mbar_wait(res->full, res->uses++ & 1);
+#pragma unroll
+    for (int jj = 0; jj < JP; ++jj) {
+      const int j = pass * JP + jj;
+      const int col = jj * 8 + (lane & 3) * 2;  // within the pass
+      const int n = n0 + pass * PASS_COLS + col;
+      const float2 bv = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
+      const int box = col / BOX_COLS;
+      const int byte = (col % BOX_COLS) * static_cast<int>(sizeof(OutT));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = r + half * 8;
+        float v0 = d[4 * j + 2 * half] + bv.x;
+        float v1 = d[4 * j + 2 * half + 1] + bv.y;
+        if (RELU_OUT) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        // chunk c of row rr sits at chunk c ^ (rr % 8)
+        OutT* p = reinterpret_cast<OutT*>(staged + box * BOX_BYTES + rr * 128 +
+                                          ((((byte >> 4) ^ (rr & 7)) << 4) | (byte & 15)));
+        if constexpr (RESID) {  // read and overwritten by this thread alone
+          const float2 rv = load2(p);
+          v0 += rv.x;
+          v1 += rv.y;
+        }
+        store2(p, v0, v1);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+    if (ctid == 0) {
+#pragma unroll
+      for (int box = 0; box < STAGED / BOX_BYTES; ++box) {
+        const int c0 = n0 + pass * PASS_COLS + box * BOX_COLS;
+        if (c0 < N) tma_store(map_out, staged + box * BOX_BYTES, c0, m0);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+}
+
+// persistent_kernel's ring and staging: 3 stages of 48 KB and a 32 KB
+// staging buffer per consumer warpgroup (bf16 stores a tile in one pass),
+// 208 KB. Four stages leave room for 16 KB per warpgroup (two passes for
+// bf16, and a residual load that waits on the first pass's store); at K1's
+// shape that layout is no faster (chip_variants.py k1).
+constexpr int P_STAGES = 3;
+constexpr int P_STAGED = 32 * 1024;
+constexpr int P_SMEM = P_STAGES * STAGE_BYTES + 2 * P_STAGED + 1024;  // + room to align
+
+// out[M, N] = (A @ Bt^T + bias) [+ res] in T, persistent over the tiles.
+// A residual rep (RESID): the consumer warpgroup's thread 0 issues the TMA
+// load of its first pass's residual into `staged` once its last store has
+// read it (only the thread that committed a bulk store can wait for it),
+// with the MMAs of the tile's middle k-tile in flight: that store has
+// drained by then, and the load lands before the epilogue.
+template <typename T, bool RESID>
+__global__ void __launch_bounds__(THREADS, 1)
+persistent_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_out,
+                  const __grid_constant__ CUtensorMap map_res, const float* __restrict__ bias,
+                  int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[P_STAGES];
+  __shared__ uint64_t empty[P_STAGES];
+  __shared__ uint64_t res_full[2];
+  // swizzled tiles need 1024-byte alignment
+  bf16* As = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Bs = As + P_STAGES * A_TILE;
+  unsigned char* staged_all = reinterpret_cast<unsigned char*>(Bs + P_STAGES * B_TILE);
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles;
+  const int KT = (K + BK - 1) / BK;
+  const int mine = (tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                   static_cast<int>(gridDim.x);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init(&res_full[0], 1);
+    mbar_init(&res_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread streams the k-tiles of every tile
+    if (tid == 0) {
+      int step = 0;  // the CTA's k-tiles so far: stage step % P_STAGES
+      for (int i = 0; i < mine; ++i) {
+        const int tile = blockIdx.x + i * gridDim.x;
+        const int m0 = (tile / n_tiles) * BM;
+        const int n0 = (tile % n_tiles) * BN;
+        for (int kt = 0; kt < KT; ++kt, ++step) {
+          const int stage = step % P_STAGES;
+          if (step >= P_STAGES) mbar_wait(&empty[stage], ((step / P_STAGES) - 1) & 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load(As + stage * A_TILE, &map_a, kt * BK, m0, &full[stage]);
+          tma_load(Bs + stage * B_TILE, &map_b, kt * BK, n0, &full[stage]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = (tid >> 7) - 1;  // consumer warpgroup: rows wg*64 .. wg*64+63 of the tile
+  const int ctid = tid & 127;
+  unsigned char* staged = staged_all + wg * P_STAGED;
+  Residual res{&map_res, &res_full[wg], 0};
+  int step = 0;
+  for (int i = 0; i < mine; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    const int m0 = (tile / n_tiles) * BM + wg * 64;
+    const int n0 = (tile % n_tiles) * BN;
+    float d[128];
+#pragma unroll
+    for (int q = 0; q < 128; ++q) d[q] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++step) {
+      const int stage = step % P_STAGES;
+      mbar_wait(&full[stage], (step / P_STAGES) & 1);
+      const bf16* as = As + stage * A_TILE + wg * 64 * BK;
+      const bf16* bs = Bs + stage * B_TILE;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int s = 0; s < BK / 16; ++s) wgmma_m64n256k16(d, make_desc(as + s * 16), make_desc(bs + s * 16));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if constexpr (RESID) {
+        if (kt == KT / 2 && ctid == 0 && m0 < M) {
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          load_boxes<T, P_STAGED>(&map_res, staged, m0, n0, N, &res_full[wg]);
+        }
+      }
+      __syncwarp();
+      // keep this k-tile's MMAs in flight; the previous k-tile's are done, so
+      // its stage goes back to the producer
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kt > 0 && ctid == 0) mbar_arrive(&empty[(step - 1) % P_STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (ctid == 0) mbar_arrive(&empty[(step - 1) % P_STAGES]);
+    store_tile<T, false, P_STAGED, RESID>(d, &map_out, bias, staged, m0, n0, M, N, ctid, 1 + wg,
+                                          &res);
+  }
+  if (ctid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Tensor map of a GEMM operand: the first K columns of a row-major
 // [rows][ld] bf16 matrix, in boxes of 64 columns x box_rows rows.
 inline int operand_map(CUtensorMap* map, const bf16* base, int rows, int K, int ld, int box_rows) {
@@ -177,6 +398,39 @@ int launch(const bf16* a, int lda, const bf16* bt, int ldb, int M, int N, int K,
   if (int e = operand_map(&map_b, bt, N, K, ldb, BN)) return e;
   const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   gemm_kernel<Epi><<<grid, THREADS, SMEM, stream>>>(map_a, map_b, N, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_dtype() {
+  return std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// out[M, N] = A[M, :K] @ Bt[N, :K]^T + bias [+ res] in T (bf16 or fp32) on
+// `stream`, through persistent_kernel: A rows `lda`, Bt rows `ldb` elements
+// apart (multiples of 8); out and res (nullptr: none) contiguous (M, N),
+// N % 8 == 0; bias (N,) fp32. min(tiles, SMs) CTAs. Returns a cudaError_t
+// code.
+template <typename T>
+int launch_persistent(const bf16* a, int lda, const bf16* bt, int ldb, const float* bias, T* out,
+                      const T* res, int M, int N, int K, cudaStream_t stream) {
+  const auto kernel = res != nullptr ? persistent_kernel<T, true> : persistent_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_a, map_b, map_out, map_res;
+  if (int e = operand_map(&map_a, a, M, K, lda, BM)) return e;
+  if (int e = operand_map(&map_b, bt, N, K, ldb, BN)) return e;
+  if (int e = make_map(&map_out, map_dtype<T>(), sizeof(T), out, M, N, N, 64)) return e;
+  if (int e = make_map(&map_res, map_dtype<T>(), sizeof(T), res != nullptr ? res : out, M, N, N, 64))
+    return e;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, P_SMEM, stream>>>(map_a, map_b, map_out, map_res,
+                                                                 bias, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

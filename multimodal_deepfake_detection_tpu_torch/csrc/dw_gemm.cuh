@@ -63,23 +63,12 @@ constexpr int CH = 4;                     // channels per producer task
 constexpr int GROUPS = BK / CH;           // 16 channel groups per k-tile
 constexpr int RUN = BM * GROUPS / PRODUCERS;  // 4 consecutive pixels per thread
 
-constexpr int OUT_BYTES = 32 * 1024;  // the epilogue's staging buffer: 4 boxes of 64 rows x 128 B
+constexpr int OUT_BYTES = 4 * gemm::BOX_BYTES;  // the epilogue's staging buffer (gemm::store_tile)
 
 // Dynamic shared memory of a launch with `slots` A slots and `b_slots`
 // weight tiles (+ room to align)
 constexpr int smem_bytes(int slots, int b_slots) {
   return (slots * A_TILE + b_slots * B_TILE) * static_cast<int>(sizeof(bf16)) + OUT_BYTES + 1024;
-}
-
-// 2-D tile store shared memory -> {inner, outer} of the tensor, in the
-// bulk group of the issuing thread
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int inner,
-                                          int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_addr(src)), "r"(inner), "r"(outer)
-      : "memory");
 }
 
 // 4 channels of the input as loaded (bf16 or fp32)
@@ -109,73 +98,6 @@ __device__ __forceinline__ float4 stage4(float4 raw) {
     if (ROUND) v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
   }
   return raw;
-}
-
-__device__ __forceinline__ void unpack4(uint2 raw, float v[4]) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void unpack4(float4 raw, float v[4]) {
-  v[0] = raw.x; v[1] = raw.y; v[2] = raw.z; v[3] = raw.w;
-}
-
-// The consumer warpgroup's epilogue: acc + bias [-> ReLU] of the 64 x 256
-// tile at (m0, n0) -> OutT, through `staged` (OUT_BYTES: four 64-row boxes
-// of 128-byte rows in the 128-byte swizzle) and TMA stores into map_out's
-// (M, N), which clip at M and N. A bf16 tile is one pass of 256 columns, an
-// fp32 tile two of 128. Before a pass overwrites `staged`, thread 0 waits
-// until the stores of the last pass have read it. The accumulator layout is
-// wgmma's: warp w holds rows 16w + lane/4 and +8, d[4j .. 4j+3] columns
-// 8j + 2*(lane%4) and the next, upper row then lower.
-template <typename OutT, bool RELU_OUT>
-__device__ __forceinline__ void store_tile(const float* d, const CUtensorMap* map_out,
-                                           const float* __restrict__ bias,
-                                           unsigned char* staged, int m0, int n0, int N,
-                                           int ctid) {
-  constexpr int BOX_COLS = 128 / static_cast<int>(sizeof(OutT));  // columns per 128-byte row
-  constexpr int PASS_COLS = 4 * BOX_COLS;                          // 4 boxes of 8 KB a pass
-  constexpr int JP = PASS_COLS / 8;                                // accumulator groups a pass
-  const int lane = ctid & 31;
-  const int r = ((ctid >> 5) & 3) * 16 + (lane >> 2);  // upper row; lower is r + 8
-#pragma unroll
-  for (int pass = 0; pass < BN / PASS_COLS; ++pass) {
-    if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-#pragma unroll
-    for (int jj = 0; jj < JP; ++jj) {
-      const int j = pass * JP + jj;
-      const int col = jj * 8 + (lane & 3) * 2;  // within the pass
-      const int n = n0 + pass * PASS_COLS + col;
-      const float2 bv = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
-      const int box = col / BOX_COLS;
-      const int byte = (col % BOX_COLS) * static_cast<int>(sizeof(OutT));
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rr = r + half * 8;
-        float v0 = d[4 * j + 2 * half] + bv.x;
-        float v1 = d[4 * j + 2 * half + 1] + bv.y;
-        if (RELU_OUT) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        // chunk c of row rr sits at chunk c ^ (rr % 8)
-        unsigned char* p = staged + box * 8192 + rr * 128 +
-                           ((((byte >> 4) ^ (rr & 7)) << 4) | (byte & 15));
-        store2(reinterpret_cast<OutT*>(p), v0, v1);
-      }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-    if (ctid == 0) {
-#pragma unroll
-      for (int box = 0; box < 4; ++box) {
-        const int c0 = n0 + pass * PASS_COLS + box * BOX_COLS;
-        if (c0 < N) tma_store(map_out, staged + box * 8192, c0, m0);
-      }
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    }
-  }
 }
 
 template <typename T, typename TileT, bool RELU, Taps ORDER, typename OutT, bool RELU_OUT>
@@ -368,7 +290,8 @@ dw_gemm_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant_
         if (!b_resident && s - 1 + B_STAGES < steps) load_b(s - 1 + B_STAGES);
         if (last) mbar_arrive(&empty_a[(i * KT + KT - 1) % slots]);
       }
-      store_tile<OutT, RELU_OUT>(d, &map_out, bias, staged, m0, item_n0(i, pass), N, ctid);
+      gemm::store_tile<OutT, RELU_OUT>(d, &map_out, bias, staged, m0, item_n0(i, pass), M, N,
+                                      ctid);
     }
   }
   if (ctid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");

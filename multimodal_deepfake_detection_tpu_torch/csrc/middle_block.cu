@@ -12,19 +12,31 @@
 // sums rounded to bf16. v1 (middle_block_pallas) and v2 with precise=True
 // compute the fp32-tap function and run this kernel as it is.
 //
-// Each rep is two kernels:
-//   dw3x3_relu_kernel (sm90_common.cuh, shared with K2) — memory-bound:
-//     reads the rep input, writes the bf16 depthwise result (the GEMM's A
-//     operand) to a scratch buffer; tiles of rows x columns x 64 channels
-//     are staged in shared memory with their halo.
-//   gemm::gemm_kernel (bf16_gemm.cuh, shared with K3) — tensor cores through
-//     wgmma m64n256k16 (bf16 in, fp32 accumulate) on 128x256x64 tiles in
-//     128-byte-swizzled shared memory, filled by TMA in a 4-stage mbarrier
-//     pipeline; K1's epilogue adds the bias, the residual on the last rep,
-//     and stores in the I/O dtype from registers.
+// Each rep is two launches, each bound on its own:
+//   dw3x3_relu_kernel (sm90_common.cuh, shared with K2 and K5) — reads the
+//     rep input once and writes the bf16 depthwise result (the GEMM's A
+//     operand) to a scratch buffer, 57 us of device memory at (256, 16,
+//     16, 728); a block stages a whole 16 x 16 image's 64 channels, and each
+//     thread slides its 3 x 3 window, taps in registers, along a run of
+//     pixels.
+//   gemm::persistent_kernel (bf16_gemm.cuh) — one CTA per SM walks 128 x 256
+//     tiles (wgmma m64n256k16, bf16 in, fp32 accumulate, k-tiles of 64
+//     summed in ascending order) through a 3-stage TMA ring that runs
+//     across tiles; the epilogue writes (acc + bias) (+ residual on the last
+//     rep, loaded by TMA under the k-loop) into a swizzled staging buffer
+//     that TMA stores. A GEMM of one tile per CTA whose epilogue stored
+//     4-byte pairs and loaded the residual from registers took 218 us a
+//     launch at (256, 16, 16, 728), this one 147 (NVIDIA H100 80GB HBM3,
+//     700 W; chip_variants.py k1). What bounds it there: the tile reads 48
+//     KB from L2 per 64-deep k-tile (85 FLOP a byte), 906 MB a launch, so
+//     ≈ 6.2 TB/s out of L2; sharing the weight tile across a cluster by
+//     TMA multicast would halve it.
+// The A operand's round trip through device memory between the two keeps
+// the pair above the block's own bound; fusing the depthwise into the
+// GEMM's producer is later work.
 // C need not be a multiple of the tile: TMA zero-fills the ragged K and N
-// edges and the epilogue masks N. C must be a multiple of 8 so that every
-// row starts on a 16-byte boundary. The GEMM's operands (the depthwise
+// edges and clips the stores at M and N. C must be a multiple of 8 so that
+// every row starts on a 16-byte boundary. The GEMM's operands (the depthwise
 // result and the pointwise weight) have rows of `ldk` >= C elements: on an
 // H100, TMA loads rows that start on 64-byte boundaries about 1.4x as fast
 // as C = 728's 1456-byte rows, every other one of which starts mid-sector.
@@ -38,57 +50,6 @@ namespace {
 
 using namespace mdfd;
 
-constexpr int EPI_J = 4;  // epilogue column groups whose loads go out together
-
-// K1's GEMM epilogue: (acc + bias) (+ residual on the last rep), stored in
-// the I/O dtype. The bias and residual loads of EPI_J column groups go out
-// together, before any of their stores, so that their round trips overlap:
-// issued one at a time between stores they cost more than the k-loop.
-template <typename T>
-struct ResidualEpilogue {
-  const float* bias;
-  const T* resid;  // nullptr but on the last rep
-  T* out;
-  int M, C;
-  static constexpr bool kStaged = false;
-
-  __device__ __forceinline__ void operator()(const float* d, int row, int n0, int lane,
-                                             const bf16*) const {
-#pragma unroll
-    for (int j0 = 0; j0 < gemm::BN / 8; j0 += EPI_J) {
-      float2 bv[EPI_J], rv[EPI_J][2];
-#pragma unroll
-      for (int jj = 0; jj < EPI_J; ++jj) {
-        const int n = n0 + (j0 + jj) * 8 + (lane & 3) * 2;  // C % 8 == 0: n < C implies n + 1 < C
-        bv[jj] = n < C ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = row + half * 8;
-          rv[jj][half] = resid != nullptr && n < C && m < M
-                             ? load2(resid + static_cast<size_t>(m) * C + n)
-                             : make_float2(0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < EPI_J; ++jj) {
-        const int j = j0 + jj;
-        const int n = n0 + j * 8 + (lane & 3) * 2;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = row + half * 8;
-          if (n < C && m < M) {
-            // (acc + bias) + residual: the plain version's order
-            const float v0 = d[4 * j + 2 * half] + bv[jj].x;
-            const float v1 = d[4 * j + 2 * half + 1] + bv[jj].y;
-            store2(out + static_cast<size_t>(m) * C + n, v0 + rv[jj][half].x,
-                   v1 + rv[jj][half].y);
-          }
-        }
-      }
-    }
-  }
-};
-
 template <Taps ORDER, typename T>
 int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* out, bf16* a,
               int N, int H, int W, int C, int ldk, int reps, cudaStream_t stream) {
@@ -99,13 +60,13 @@ int run_block(const T* x, const float* dw, const bf16* pw, const float* b, T* ou
     const T* src = r == 0 ? x : out;
     dw3x3_relu_kernel<T, bf16, true, ORDER><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
         src, dw + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band,
-        dw_launch.cols_per_tile);
+        dw_launch.cols_per_tile, dw_launch.chans);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const ResidualEpilogue<T> epi{b + static_cast<size_t>(r) * C, r + 1 == reps ? x : nullptr,
-                                  out, M, C};
-    if (int e = gemm::launch(a, ldk, pw + static_cast<size_t>(r) * C * ldk, ldk, M, C, C, epi,
-                             stream))
+    const T* resid = r + 1 == reps ? x : nullptr;
+    if (int e = gemm::launch_persistent(a, ldk, pw + static_cast<size_t>(r) * C * ldk, ldk,
+                                        b + static_cast<size_t>(r) * C, out, resid, M, C, C,
+                                        stream))
       return e;
   }
   return 0;

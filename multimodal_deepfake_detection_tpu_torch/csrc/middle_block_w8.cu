@@ -202,7 +202,7 @@ int run_block(const T* x, const float* taps, const int8_t* pw, const float* sc, 
     const T* src = r == 0 ? x : out;
     dw3x3_relu_kernel<T, int8_t><<<dw_launch.grid, DW_THREADS, dw_launch.smem, stream>>>(
         src, taps + static_cast<size_t>(r) * 9 * C, a, H, W, C, ldk, dw_launch.rows_per_band,
-        dw_launch.cols_per_tile);
+        dw_launch.cols_per_tile, dw_launch.chans);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     CUtensorMap map_b;

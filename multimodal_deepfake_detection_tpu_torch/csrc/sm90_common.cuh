@@ -5,8 +5,8 @@
 //   - the depthwise 3x3's arithmetic in three tap orders (dw3x3_sum), and
 //     the tiled [ReLU ->] depthwise kernel that writes the GEMM's A operand
 //     with it (bf16 for K1 and K5, int8 codes for K2);
-//   - mbarrier, TMA and wgmma shared-memory descriptor helpers, and the
-//     2-D tensor-map encoder.
+//   - mbarrier, TMA load and store, and wgmma shared-memory descriptor
+//     helpers, and the 2-D tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
@@ -55,13 +55,40 @@ __device__ __forceinline__ void store8(bf16* p, const float acc[8]) {
   for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1]);
   *reinterpret_cast<uint4*>(p) = packed;
 }
+__device__ __forceinline__ int8_t int8_code(float v) {
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
+}
 __device__ __forceinline__ void store8(int8_t* p, const float acc[8]) {
   uint2 packed;
   int8_t* o = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    o[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(acc[e]), -127.f), 127.f)));
+  for (int e = 0; e < 8; ++e) o[e] = int8_code(acc[e]);
   *reinterpret_cast<uint2*>(p) = packed;
+}
+
+// 4 values -> memory: bf16, or int8 codes as store8 rounds them
+__device__ __forceinline__ void store4(bf16* p, const float acc[4]) {
+  uint2 packed;
+  *reinterpret_cast<__nv_bfloat162*>(&packed.x) = __floats2bfloat162_rn(acc[0], acc[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&packed.y) = __floats2bfloat162_rn(acc[2], acc[3]);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+__device__ __forceinline__ void store4(int8_t* p, const float acc[4]) {
+  unsigned packed;
+  int8_t* o = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = int8_code(acc[e]);
+  *reinterpret_cast<unsigned*>(p) = packed;
+}
+
+// 4 bf16 (8 bytes) or fp32 values -> fp32
+__device__ __forceinline__ void unpack4(uint2 raw, float v[4]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void unpack4(float4 raw, float v[4]) {
+  v[0] = raw.x; v[1] = raw.y; v[2] = raw.z; v[3] = raw.w;
 }
 
 // ---------------------------------------------------------------------------
@@ -135,32 +162,49 @@ __device__ __forceinline__ void dw3x3_sum(const In& in, const Tap& tap, float ac
 
 // ---------------------------------------------------------------------------
 // [ReLU ->] depthwise 3x3, operand out (bf16 for K1 and K5, int8 codes for
-// K2). A block owns a tile of up to `rows_per_band` output rows by
-// `cols_per_tile` output columns of one image, and 64 channels: it stages
-// the tile plus its one-pixel zero halo in shared memory once (ReLU'd if
-// RELU, rounded to bf16 as it lands), with the tile's 9 x 64 taps (rounded
-// to bf16 for Taps::kDyBf16), then each thread computes 8 channels of one
-// output pixel per step with dw3x3_sum.
+// K2). A block owns a tile of one image and a slab of `chans` channels (64;
+// 128 where a whole image of 128 fits DW_SMEM_TARGET, as at 8 x 8): the
+// whole image where it fits (16 x 16 does at 64), else up to 8 rows by up
+// to 64 columns. It stages the tile plus its one-pixel zero halo in shared
+// memory once (ReLU'd if RELU, rounded to bf16 as it lands; each thread
+// keeps DW_STAGE 16-byte loads in flight; a pixel's live channels packed,
+// so a narrower last slab reads without bank conflicts). A thread owns 4
+// channels, holds their 9 taps in registers (rounded to bf16 for
+// Taps::kDyBf16) and computes a run of up to DW_RUN consecutive pixels
+// along w, sliding its 3 x 3 window: a run of r pixels reads 3(r + 2)
+// staged 8-byte vectors from shared memory, not each pixel's 9 neighbours
+// and 9 taps (432 bytes per 8 outputs). Threads map to (channel group,
+// run) pairs, so a 24-channel slab keeps 6 of every 8 threads busy, and
+// runs shorten until every thread has one. The sums are dw3x3_sum's.
+//
+// What bounds it on an H100: device memory (the input read once, the
+// operand written once) sets 57 us at K1's shape; it takes 129 (NVIDIA
+// H100 80GB HBM3, 700 W; chip_variants.py k1), and neither more staging
+// loads in flight nor 128-thread blocks move that, while 4 blocks an SM
+// (64 registers a thread) spill the taps and take 60 % longer. A block's staging
+// and its sums do not overlap one another, only other blocks' phases.
 // ---------------------------------------------------------------------------
-constexpr int DW_CC = 64;  // channels per block
+constexpr int DW_CC = 64;  // channels per slab
 constexpr int DW_THREADS = 256;
-// Tiles are sized to this so that four blocks share an SM (occupancy hides
-// the staging loads); tiling along W makes any width fit, far inside the
-// 227 KB a block may use.
+constexpr int DW_MIN_BLOCKS = 3;  // per SM
+constexpr int DW_RUN = 8;         // pixels per run, at most
+constexpr int DW_STAGE = 4;       // staging loads in flight per thread
+// Tiles are sized to this so that several blocks share an SM (occupancy
+// hides the staging loads); tiling along W makes any width fit, far inside
+// the 227 KB a block may use.
 constexpr int DW_SMEM_TARGET = 48 * 1024;
 
-__host__ __device__ constexpr int dw_smem_bytes(int rows, int cols) {
-  return (rows + 2) * (cols + 2) * DW_CC * static_cast<int>(sizeof(bf16)) + 9 * DW_CC * 4;
+__host__ __device__ constexpr int dw_smem_bytes(int rows, int cols, int chans) {
+  return (rows + 2) * (cols + 2) * chans * static_cast<int>(sizeof(bf16));
 }
 
 template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy>
-__global__ void __launch_bounds__(DW_THREADS)
+__global__ void __launch_bounds__(DW_THREADS, DW_MIN_BLOCKS)
 dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
                   OutT* __restrict__ a, int H, int W, int C, int ldk, int rows_per_band,
-                  int cols_per_tile) {
+                  int cols_per_tile, int chans) {
   extern __shared__ __align__(16) unsigned char dw_smem[];
-  float* taps_s = reinterpret_cast<float*>(dw_smem);         // [9][DW_CC]
-  bf16* tile = reinterpret_cast<bf16*>(taps_s + 9 * DW_CC);  // [rows+2][cols+2][DW_CC]
+  bf16* tile = reinterpret_cast<bf16*>(dw_smem);  // [rows+2][cols+2][cc]
 
   const int bands = (H + rows_per_band - 1) / rows_per_band;
   const int tiles = (W + cols_per_tile - 1) / cols_per_tile;
@@ -170,72 +214,122 @@ dw3x3_relu_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   const int w0 = (t % tiles) * cols_per_tile;
   const int rows = min(rows_per_band, H - h0);
   const int cols = min(cols_per_tile, W - w0);
-  const int c0 = blockIdx.y * DW_CC;
-  const int vecs = min(DW_CC, C - c0) / 8;  // C % 8 == 0
+  const int c0 = blockIdx.y * chans;
+  const int cc = min(chans, C - c0);  // live channels, C % 8 == 0
+  const int vecs8 = cc / 8;
   const size_t image = static_cast<size_t>(n) * H * W * C;
   const int pitch = cols + 2;
 
-  for (int i = threadIdx.x; i < 9 * vecs * 8; i += DW_THREADS) {
-    const int k = i / (vecs * 8);
-    const int c = i - k * vecs * 8;
-    const float tv = taps[k * C + c0 + c];
-    // bf16 taps are staged already rounded, so their conversion back is exact
-    taps_s[k * DW_CC + c] = ORDER == Taps::kDyBf16 ? __bfloat162float(__float2bfloat16_rn(tv)) : tv;
-  }
-  for (int i = threadIdx.x; i < (rows + 2) * pitch * vecs; i += DW_THREADS) {
-    const int v = i % vecs;
-    const int p = i / vecs;
-    const int col = p % pitch;
-    const int r = p / pitch;
-    const int hh = h0 - 1 + r;
-    const int ww = w0 - 1 + col;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-      load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + v * 8, f);
+  const int items = (rows + 2) * pitch * vecs8;  // 8-channel vectors to stage
+  for (int i0 = threadIdx.x; i0 < items; i0 += DW_STAGE * DW_THREADS) {
+    float f[DW_STAGE][8];
+#pragma unroll
+    for (int u = 0; u < DW_STAGE; ++u) {  // the loads first, all in flight
+      const int i = i0 + u * DW_THREADS;
+      const int p = i / vecs8;
+      const int hh = h0 - 1 + p / pitch;
+      const int ww = w0 - 1 + p % pitch;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[u][e] = 0.f;
+      if (i < items && hh >= 0 && hh < H && ww >= 0 && ww < W)
+        load8(x + image + (static_cast<size_t>(hh) * W + ww) * C + c0 + (i % vecs8) * 8, f[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < DW_STAGE; ++u) {
+      const int i = i0 + u * DW_THREADS;
+      if (i >= items) break;
       if (RELU) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = f[e] > 0.f ? f[e] : 0.f;
+        for (int e = 0; e < 8; ++e) f[u][e] = f[u][e] > 0.f ? f[u][e] : 0.f;
       }
+      store8(tile + (i / vecs8) * cc + (i % vecs8) * 8, f[u]);  // rounded to bf16 here
     }
-    store8(tile + (r * pitch + col) * DW_CC + v * 8, f);  // rounded to bf16 here
+  }
+  const int groups = cc / 4;
+  const int g = threadIdx.x % groups;  // channels c0 + 4g .. +3
+  float tv[9][4];                      // loaded while the barrier waits
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    unpack4(*reinterpret_cast<const float4*>(taps + k * C + c0 + g * 4), tv[k]);
+    if (ORDER == Taps::kDyBf16) {  // rounded once, so their conversion back is exact
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tv[k][e] = __bfloat162float(__float2bfloat16_rn(tv[k][e]));
+    }
   }
   __syncthreads();
 
-  const int v = threadIdx.x % 8;
-  if (v >= vecs) return;
-  for (int p = threadIdx.x / 8; p < rows * cols; p += DW_THREADS / 8) {
-    const int r = p / cols;
-    const int w = p - r * cols;
-    const bf16* at = tile + (r * pitch + w) * DW_CC + v * 8;
-    float acc[8];
-    dw3x3_sum<ORDER, 8>(
-        [&](int k, float in[8]) { load8(at + ((k / 3) * pitch + k % 3) * DW_CC, in); },
-        [&](int k, float tk[8]) { load8(taps_s + k * DW_CC + v * 8, tk); }, acc);
-    const size_t pixel =
-        static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w0 + w;
-    store8(a + pixel * ldk + c0 + v * 8, acc);
+  const int slots = DW_THREADS / groups;  // runs in flight
+  const int slot = threadIdx.x / groups;
+  if (slot >= slots) return;
+  // the longest run that still gives every slot one
+  int run = DW_RUN;
+  while (run > 1 && rows * ((cols + run - 1) / run) < slots) run >>= 1;
+  const int runs_per_row = (cols + run - 1) / run;
+  const auto tap = [&](int k, float tk[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tk[e] = tv[k][e];
+  };
+  for (int q = slot; q < rows * runs_per_row; q += slots) {
+    const int r = q / runs_per_row;
+    const int wr = (q - r * runs_per_row) * run;  // the run's first column in the tile
+    const int len = min(run, cols - wr);
+    // staged pixel (r + dy, wr + j) is the run's neighbour (dy - 1, j - 1)
+    const bf16* at = tile + (r * pitch + wr) * cc + g * 4;
+    const auto staged = [&](int dy, int j) {
+      return *reinterpret_cast<const uint2*>(at + (dy * pitch + j) * cc);
+    };
+    uint2 win[3][3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      win[dy][0] = staged(dy, 0);
+      win[dy][1] = staged(dy, 1);
+    }
+    OutT* o = a + (static_cast<size_t>(n) * H * W + static_cast<size_t>(h0 + r) * W + w0 + wr) *
+                      ldk + c0 + g * 4;
+#pragma unroll
+    for (int p = 0; p < DW_RUN; ++p) {
+      if (p >= len) break;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) win[dy][2] = staged(dy, p + 2);
+      float acc[4];
+      dw3x3_sum<ORDER, 4>([&](int k, float in[4]) { unpack4(win[k / 3][k % 3], in); }, tap, acc);
+      store4(o + static_cast<size_t>(p) * ldk, acc);
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        win[dy][0] = win[dy][1];
+        win[dy][1] = win[dy][2];
+      }
+    }
   }
 }
 
-// Launch geometry of dw3x3_relu_kernel for one (N, H, W, C): tiles of up to
-// 8 rows by 64 columns, the columns halved while the staged tile would
-// outgrow DW_SMEM_TARGET.
+// Launch geometry of dw3x3_relu_kernel for one (N, H, W, C): the whole
+// image where it fits DW_SMEM_TARGET, else tiles of up to 8 rows by 64
+// columns, the columns halved while the staged tile would outgrow it; two
+// slabs of channels a block where the whole image holds them.
 struct DwLaunch {
   dim3 grid;
   int smem;
   int rows_per_band;
   int cols_per_tile;
+  int chans;
 };
 
 template <typename T, typename OutT, bool RELU = true, Taps ORDER = Taps::kDy>
 int dw3x3_setup(int N, int H, int W, int C, DwLaunch* l) {
-  const int rows = H < 8 ? H : 8;
+  int rows = H < 8 ? H : 8;
   int cols = W < 64 ? W : 64;
-  while (cols > 8 && dw_smem_bytes(rows, cols) > DW_SMEM_TARGET) cols = (cols + 1) / 2;
+  while (cols > 8 && dw_smem_bytes(rows, cols, DW_CC) > DW_SMEM_TARGET) cols = (cols + 1) / 2;
+  const bool whole = cols == W && dw_smem_bytes(H, W, DW_CC) <= DW_SMEM_TARGET;
+  if (whole) rows = H;  // no halo rows read twice
+  // a small image's thread gets a full run, and a block more than a few warps' work
+  l->chans = whole && C > DW_CC && dw_smem_bytes(H, W, 2 * DW_CC) <= DW_SMEM_TARGET ? 2 * DW_CC
+                                                                                     : DW_CC;
   l->rows_per_band = rows;
   l->cols_per_tile = cols;
-  l->smem = dw_smem_bytes(rows, cols);
-  l->grid = dim3(N * ((H + rows - 1) / rows) * ((W + cols - 1) / cols), (C + DW_CC - 1) / DW_CC);
+  l->smem = dw_smem_bytes(rows, cols, l->chans);
+  l->grid = dim3(N * ((H + rows - 1) / rows) * ((W + cols - 1) / cols),
+                 (C + l->chans - 1) / l->chans);
   return static_cast<int>(cudaFuncSetAttribute(
       dw3x3_relu_kernel<T, OutT, RELU, ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l->smem));
@@ -249,7 +343,7 @@ int dw3x3_launch(const T* x, const float* taps, OutT* a, int N, int H, int W, in
   DwLaunch l;
   if (int e = dw3x3_setup<T, OutT, RELU, ORDER>(N, H, W, C, &l)) return e;
   dw3x3_relu_kernel<T, OutT, RELU, ORDER><<<l.grid, DW_THREADS, l.smem, stream>>>(
-      x, taps, a, H, W, C, ldk, l.rows_per_band, l.cols_per_tile);
+      x, taps, a, H, W, C, ldk, l.rows_per_band, l.cols_per_tile, l.chans);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,6 +391,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// 2-D tile store shared memory -> {inner, outer} of the tensor, in the
+// bulk group of the issuing thread (cp.async.bulk.commit_group closes it)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int inner,
+                                          int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(inner), "r"(outer)
       : "memory");
 }
 

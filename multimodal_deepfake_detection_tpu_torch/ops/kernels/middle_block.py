@@ -8,16 +8,18 @@ bound through ``ctypes``.
 
 What bounds it on an H100: per rep at 256 frames of 16x16x728, the pointwise
 is 2*65,536*728^2 = 69.5 GFLOP (tensor cores), and the depthwise reads and
-writes about 95 MB each way (memory). The design is the simple form: per rep
-one memory-bound depthwise kernel (bands of rows staged in shared memory with
-their zero halo) that writes the bf16 GEMM operand, then one warp-specialised
-``wgmma`` GEMM (TMA into swizzled shared memory) whose epilogue fuses bias,
-residual and the output cast. On an H100, TMA loads rows that start on
-64-byte boundaries about 1.4x as fast as C = 728's 1456-byte rows, so both
-GEMM operands get rows padded to 32 elements: the packed pointwise weight is
-``(reps, C, ldk)`` and the depthwise result ``(N*H*W, ldk)``. Fusing the
-depthwise into the GEMM's A-tile load is later work. The TPU layout ``(H*W, B, C)`` and its batch
-padding to 8 existed for the TPU's tiling and are not carried over: this
+writes about 95 MB each way (memory). Per rep, one memory-bound depthwise
+kernel (whole 16x16 images staged in shared memory with their zero halo,
+taps in registers, a 3x3 window sliding along runs of pixels) writes the
+bf16 GEMM operand, then one persistent warp-specialised ``wgmma`` GEMM (TMA
+into swizzled shared memory, one CTA per SM) whose epilogue fuses bias,
+residual and the output cast and stores through shared memory by TMA
+(``csrc/middle_block.cu`` has the design). On an H100, TMA loads rows that
+start on 64-byte boundaries about 1.4x as fast as C = 728's 1456-byte rows,
+so both GEMM operands get rows padded to 32 elements: the packed pointwise
+weight is ``(reps, C, ldk)`` and the depthwise result ``(N*H*W, ldk)``.
+Fusing the depthwise into the GEMM's A-tile load is later work. The TPU
+layout ``(H*W, B, C)`` and its batch padding to 8 existed for the TPU's tiling and are not carried over: this
 kernel works on NHWC at any N, H and W.
 
 Rounding points match ``_pos_kernel``: each rep's input is ReLU'd and rounded

@@ -67,22 +67,39 @@ def cuda_default_flags():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "N,H,C,dtype,ldk",
-    [(15, 4, 728, torch.bfloat16, 736), (15, 4, 728, torch.bfloat16, 728),
-     (3, 2, 728, torch.bfloat16, 736), (1, 1, 728, torch.bfloat16, 736),
-     (5, 4, 728, torch.float32, 736), (4, 8, 40, torch.bfloat16, 64)],
-)
+# K1's persistent GEMM walks 128 x 256 tiles, one CTA per SM: fewer tiles
+# than SMs (1 x 1 at N = 1, 2 x 2 at N = 3), a ragged last M tile over many
+# waves (N = 257 at 16 x 16), one N tile with a partial k-tile (C = 40),
+# 1,456-byte rows for every tensor map (ldk = C = 728), fp32 I/O (two
+# staging passes), and the main shape (256 frames at 16 x 16).
+K1_CASES = [(15, 4, 728, torch.bfloat16, 736), (15, 4, 728, torch.bfloat16, 728),
+            (3, 2, 728, torch.bfloat16, 736), (1, 1, 728, torch.bfloat16, 736),
+            (5, 4, 728, torch.float32, 736), (4, 8, 40, torch.bfloat16, 64),
+            (257, 16, 728, torch.bfloat16, 736), (257, 16, 728, torch.bfloat16, 728),
+            (256, 16, 728, torch.bfloat16, 736)]
+# the share of K1's outputs bit-equal to the plain version's at 256 frames,
+# which only the GEMM's summation order keeps below 1: 0.986299 on this
+# test's operands (NVIDIA H100 80GB HBM3, 700 W), from a kernel whose
+# outputs equal the one-tile GEMM design's (chip_variants.py --against); the
+# floor sits one millionth below for the printed rounding
+K1_BIT_EQUAL_256 = 0.986298
+
+
+def _k1_operands(g, N, H, C, dtype, ldk, device):
+    x = torch.randn((N, H, H, C), generator=g).to(device, dtype)
+    dw = (torch.randn((3, 9, C), generator=g) * 0.2).to(device)
+    pw = torch.full((3, C, ldk), float("nan"))
+    pw[..., :C] = torch.randn((3, C, C), generator=g) / C ** 0.5
+    b = (torch.randn((3, C), generator=g) * 0.1).to(device)
+    return x, dw, pw.to(device, torch.bfloat16), b
+
+
+@pytest.mark.parametrize("N,H,C,dtype,ldk", K1_CASES)
 def test_middle_block_kernel_matches_plain(cuda, N, H, C, dtype, ldk):
     """``ldk`` is the pointwise weight's row length; its padding holds NaN,
     which the kernel must never read."""
     g = torch.Generator().manual_seed(N * 1000 + H * 10 + C)
-    x = torch.randn((N, H, H, C), generator=g).to(cuda, dtype)
-    dw = (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda)
-    pw = torch.full((3, C, ldk), float("nan"))
-    pw[..., :C] = torch.randn((3, C, C), generator=g) / C ** 0.5
-    pw = pw.to(cuda, torch.bfloat16)
-    b = (torch.randn((3, C), generator=g) * 0.1).to(cuda)
+    x, dw, pw, b = _k1_operands(g, N, H, C, dtype, ldk, cuda)
     before = middle_block.launches
     got = middle_block(x, dw, pw, b)
     torch.cuda.synchronize()
@@ -91,6 +108,10 @@ def test_middle_block_kernel_matches_plain(cuda, N, H, C, dtype, ldk):
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2, atol=1.6e-2)
     assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
+    if N == 256:
+        share = (got == ref).float().mean().item()
+        print(f"K1 bit-equal share at 256 frames: {share:.6f}")
+        assert share >= K1_BIT_EQUAL_256
 
 
 def _close(got, ref):
@@ -98,22 +119,12 @@ def _close(got, ref):
     assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize(
-    "N,H,C,dtype",
-    [(15, 4, 728, torch.bfloat16), (3, 3, 728, torch.bfloat16), (3, 2, 728, torch.bfloat16),
-     (1, 1, 728, torch.bfloat16), (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16)],
-)
-def test_middle_block_bf16taps_kernel_matches_plain(cuda, N, H, C, dtype):
+@pytest.mark.parametrize("N,H,C,dtype,ldk", K1_CASES + [(3, 3, 728, torch.bfloat16, 736)])
+def test_middle_block_bf16taps_kernel_matches_plain(cuda, N, H, C, dtype, ldk):
     """K1 in ``middle_block_pallas_v2(precise=False)``'s tap order, counted
     on its own counter."""
     g = torch.Generator().manual_seed(N * 1000 + H * 10 + C + 7)
-    ldk = -(-C // 32) * 32
-    x = torch.randn((N, H, H, C), generator=g).to(cuda, dtype)
-    dw = (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda)
-    pw = torch.full((3, C, ldk), float("nan"))
-    pw[..., :C] = torch.randn((3, C, C), generator=g) / C ** 0.5
-    pw = pw.to(cuda, torch.bfloat16)
-    b = (torch.randn((3, C), generator=g) * 0.1).to(cuda)
+    x, dw, pw, b = _k1_operands(g, N, H, C, dtype, ldk, cuda)
     before, before_fp32 = middle_block_bf16taps.launches, middle_block.launches
     got = middle_block_bf16taps(x, dw, pw, b)
     torch.cuda.synchronize()
@@ -169,7 +180,7 @@ def test_entry_pair_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, 
     "N,H,Cin,Cout,dtype,lead,trail",
     [(15, 8, 1024, 1536, torch.bfloat16, False, True), (15, 1, 1536, 2048, torch.bfloat16, False, True),
      (3, 2, 1024, 1536, torch.bfloat16, True, False), (5, 9, 40, 16, torch.bfloat16, True, True),
-     (3, 2, 1536, 2048, torch.float32, False, False)],
+     (3, 2, 1536, 2048, torch.float32, False, False), (7, 16, 728, 728, torch.bfloat16, True, False)],
 )
 def test_sepconv_unit_kernel_matches_plain(cuda, N, H, Cin, Cout, dtype, lead, trail):
     g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
@@ -229,7 +240,7 @@ def test_entry_block_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype,
 @pytest.mark.parametrize(
     "N,H,C,dtype",
     [(15, 4, 728, torch.bfloat16), (3, 2, 728, torch.bfloat16), (1, 1, 728, torch.bfloat16),
-     (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16)],
+     (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16), (17, 16, 728, torch.bfloat16)],
 )
 def test_middle_block_w8_kernel_matches_plain(cuda, N, H, C, dtype):
     """K2 with per-channel ``s_in``; the int8 pointwise rows' padding past C
