@@ -37,10 +37,12 @@ raises and exits non-zero:
 5. times on the card (CUDA events after warmup): each kernel against its
    plain version and against PyTorch's own calls for the same function (K3
    per stride-2 block, K4 per stride-2 pair beside the first design's
-   four-launch pair (two K5 units), K5 per exit conv, of 256 frames; K1's
-   two halves per launch by ``torch.profiler`` beside their bounds and
-   cuDNN's depthwise and cuBLAS's ``addmm`` alone, one K1 block being 6
-   device launches, 3 of each half), and
+   four-launch pair (two K5 units), K5 per exit conv, of 256 frames, with
+   its depthwise and GEMM halves, one call being 2 device launches; the
+   two halves of K1 and of K2 per launch by ``torch.profiler`` beside their
+   bounds and cuDNN's depthwise and cuBLAS's ``addmm`` (K2:
+   ``torch._int_mm``) alone, one block being 6 device launches, 3 of each
+   half), and
    the slice's frames/s, fp (plain, K1, each route) and w8a8,
    in turns; then the device busy share and the top kernels of one scored
    batch per kernel path (``torch.profiler``).
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -104,6 +107,7 @@ K2_SHAPES = (  # (N, H=W, C, dtype name); pw_q rows padded to 64 bytes
     (1, 1, 728, "bfloat16"),
     (15, 4, 728, "float32"),
     (4, 8, 40, "bfloat16"),
+    (257, 16, 728, "bfloat16"),  # the persistent GEMM: a ragged last M tile over many waves
 )
 DW_SHAPES = (  # (N, H=W, C): the 10 int8 depthwise sites of 256 frames at 256^2, and a 1x1
     (256, 125, 64), (256, 125, 128),  # block 1
@@ -170,6 +174,7 @@ K5_SHAPES = K5_CONVS + (
     (4, 9, 40, 16, True, False, "bfloat16"),
     (4, 9, 40, 16, True, True, "bfloat16"),
     (3, 2, 1024, 1536, False, True, "float32"),
+    (7, 8, 1024, 1536, False, True, "bfloat16"),  # M = 448: a ragged last M tile
 )
 CLIP_LENGTHS = (8, 5, 3, 8, 5)  # odd count, odd lengths; batch_size 4 -> 2 backbone calls
 BATCH_SIZE = 4
@@ -364,7 +369,8 @@ def phase_kernels(torch) -> dict:
         got = middle_block_w8(*ops)
         torch.cuda.synchronize()
         worst["middle_block_w8"] = max(worst["middle_block_w8"], compare(
-            torch, f"K2 ({N},{H},{H},{C}) {dtype}", got, middle_block_w8_ref(*ops), int8=True))
+            torch, f"K2 ({N},{H},{H},{C}) {dtype}", got, middle_block_w8_ref(*ops), int8=True,
+            equal_min=1.0))
     for i, (N, H, C) in enumerate(DW_SHAPES):
         dtype = "float32" if i == len(DW_SHAPES) - 1 else "bfloat16"
         ops = dw_operands(torch, N, H, C, dtype, seed=200 + i)
@@ -417,7 +423,7 @@ def phase_kernels(torch) -> dict:
     ops = k2_operands(torch, 1, H, C, "bfloat16", seed=751, W=W)
     worst["middle_block_w8"] = max(worst["middle_block_w8"], compare(
         torch, f"K2 (1,{H},{W},{C}) bfloat16", middle_block_w8(*ops), middle_block_w8_ref(*ops),
-        int8=True))
+        int8=True, equal_min=1.0))
     ops = k5_operands(torch, 1, H, C, 48, "bfloat16", seed=752, W=W)
     kw = dict(leading_relu=True, trailing_relu=True)
     worst["sepconv_unit"] = max(worst["sepconv_unit"], compare(
@@ -442,32 +448,37 @@ def phase_kernels(torch) -> dict:
     return worst
 
 
-def device_kernels(torch, fn, attempts: int = 3) -> list:
-    """``torch.profiler``'s device kernels of one ``fn()``, each attempt
-    after a warm-up step. On the card the profiler can lose kernel records
-    (it never adds any): the attempt that saw the most launches is kept."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+PROFILED_CALLS = 4
 
-    best = []
+
+def device_kernels(torch, fn, attempts: int = 3) -> dict:
+    """``{kernel name: (device us summed, launches)}`` of ``PROFILED_CALLS``
+    calls of ``fn()`` in one ``torch.profiler`` window, after a warm-up
+    call. On the card the profiler loses kernel records at random (it never
+    adds any; one in a short window often enough that every attempt of a
+    two-kernel call missed one): of ``attempts`` windows the one that saw the
+    most launches is kept, and a count per call is its launches over
+    ``PROFILED_CALLS``, rounded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = {}
     for _ in range(attempts):
-        events = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
-            for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_CALLS):
                 fn()
-                torch.cuda.synchronize()
-                prof.step()
-        events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        if sum(e.count for e in events) > sum(e.count for e in best):
-            best = events
+            torch.cuda.synchronize()
+        seen = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+        if sum(n for _, n in seen.values()) > sum(n for _, n in best.values()):
+            best = seen
     return best
 
 
 def device_launches(torch, fn) -> int:
     """The number of kernels the device ran for one ``fn()``."""
-    return sum(e.count for e in device_kernels(torch, fn))
+    return round(sum(n for _, n in device_kernels(torch, fn).values()) / PROFILED_CALLS)
 
 
 def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None:
@@ -910,6 +921,7 @@ def phase_times(torch, smi: str, workdir: str):
     say(f"time K2 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
         f"({ops / ms['kernel'] / 1e9:.1f} TOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
         f"cuDNN + torch._int_mm {ms['library']:.4f} ms; runs {runs} [{smi}]")
+    k2_halves(torch, ops_k2, smi)
 
     Nd, Hd, Cd = 256, 125, 128  # block 1's second depthwise, the largest site
     xd, w_q, s_ind, scd = dw_operands(torch, Nd, Hd, Cd, "bfloat16", seed=97)
@@ -968,6 +980,42 @@ def phase_times(torch, smi: str, workdir: str):
     return times
 
 
+def half_of(key: str) -> str:
+    """The half of a two-launch kernel that a device kernel's name belongs
+    to: the depthwise, or ``persistent_kernel<E, T, RELU_OUT, RESID>``
+    without or with the residual; anything else is a PyTorch op."""
+    if "dw3x3" in key:
+        return "depthwise"
+    m = re.search(r"persistent_kernel<([^<>]*)>", key)
+    if m:
+        return "GEMM with residual" if m.group(1).split(",")[-1].strip() == "true" else "GEMM"
+    return "PyTorch op"
+
+
+def device_halves(torch, label: str, fn, expected: dict) -> dict:
+    """``{half: (device us per launch, launches per call)}`` of ``fn()`` by
+    ``torch.profiler``; fails unless the kernel's launches per half are
+    ``expected`` (the wrapper's own PyTorch ops are shown, not held)."""
+    sums = {}
+    for key, (us, n) in device_kernels(torch, fn).items():
+        half = half_of(key)
+        us0, n0 = sums.get(half, (0.0, 0))
+        sums[half] = (us0 + us, n0 + n)
+    halves = {half: (us / n, round(n / PROFILED_CALLS)) for half, (us, n) in sums.items()}
+    counts = {half: n for half, (_, n) in halves.items()}
+    say(f"device launches of one {label}: {counts}")
+    if {k: n for k, n in counts.items() if k != "PyTorch op"} != expected:
+        raise AssertionError(f"one {label} launched {counts}: {expected} expected")
+    return halves
+
+
+def per_launch(halves: dict) -> str:
+    return ", ".join(f"{k} {us:.2f} (x{n})" for k, (us, n) in halves.items())
+
+
+BLOCK_LAUNCHES = {"depthwise": 3, "GEMM": 2, "GEMM with residual": 1}
+
+
 def k1_halves(torch, x, dw, pw, b, smi: str) -> None:
     """One K1 block's two halves: device time per launch by ``torch.profiler``
     beside each half's bound and, as yardsticks the port never calls,
@@ -980,18 +1028,7 @@ def k1_halves(torch, x, dw, pw, b, smi: str) -> None:
 
     N, H, W, C = x.shape
     M, ldk = N * H * W, pw.shape[-1]
-    halves = {}
-    for e in device_kernels(torch, lambda: middle_block(x, dw, pw, b)):
-        half = ("depthwise" if "dw3x3" in e.key else
-                "GEMM with residual" if "persistent_kernel" in e.key and ", true>" in e.key else
-                "GEMM" if "persistent_kernel" in e.key else e.key[:80])
-        us, n = halves.get(half, (0.0, 0))
-        halves[half] = (us + e.self_device_time_total, n + e.count)
-    counts = {half: n for half, (_, n) in halves.items()}
-    say(f"device launches of one K1 block: {counts}")
-    if counts != {"depthwise": 3, "GEMM": 2, "GEMM with residual": 1}:
-        raise AssertionError(f"one K1 block launched {counts}: 6 kernels, 3 depthwise and "
-                             "2 + 1 GEMM, expected")
+    halves = device_halves(torch, "K1 block", lambda: middle_block(x, dw, pw, b), BLOCK_LAUNCHES)
     a = torch.relu(x).permute(0, 3, 1, 2)
     taps = dw[0].t().reshape(C, 1, 3, 3).to(x.dtype)
     y = torch.randn((M, C), device=x.device).to(x.dtype)
@@ -1006,12 +1043,54 @@ def k1_halves(torch, x, dw, pw, b, smi: str) -> None:
     bound_mm = max(bytes_mm / PEAK_BYTES, 2 * M * C * C / PEAK_BF16) * 1e6
     bound_res = max((bytes_mm + M * C * 2) / PEAK_BYTES, 2 * M * C * C / PEAK_BF16) * 1e6
     floor = (3 * bound_dw + 2 * bound_mm + bound_res) / 1e3
-    say(f"time K1 halves ({N},{H},{W},{C}) bf16, device us per launch: "
-        + ", ".join(f"{k} {us / n:.2f} (x{n})" for k, (us, n) in halves.items())
-        + f"; bounds: depthwise {bound_dw:.1f} (bytes), GEMM {bound_mm:.1f} (operations), with "
+    say(f"time K1 halves ({N},{H},{W},{C}) bf16, device us per launch: {per_launch(halves)}"
+        f"; bounds: depthwise {bound_dw:.1f} (bytes), GEMM {bound_mm:.1f} (operations), with "
         f"the residual {bound_res:.1f} (bytes); yardsticks: cuDNN depthwise "
         f"{lib['cuDNN depthwise'] * 1e3:.2f}, cuBLAS addmm {lib['cuBLAS addmm'] * 1e3:.2f}; "
         f"two-launch floor {floor:.4f} ms per block [{smi}]")
+
+
+def k2_halves(torch, ops_k2, smi: str) -> None:
+    """One K2 block's two halves, as ``k1_halves``: the int8-out depthwise
+    and the s8 GEMM (with the residual on the last rep), device us per
+    launch, beside each half's bound and, as yardsticks the port never
+    calls, cuDNN's fp32 depthwise and ``torch._int_mm`` alone at the same
+    shapes; the two-launch floor. Fails unless the block is 6 device
+    launches, 3 of each half (beside them run the wrapper's two fp32 ops,
+    ``_scaled``)."""
+    import torch.nn.functional as F
+
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+        _scaled,
+        middle_block_w8,
+    )
+
+    x, dw, pw_q, s_w, s_in, s_dq, b = ops_k2
+    N, H, W, C = x.shape
+    M, ldk = N * H * W, pw_q.shape[-1]
+    halves = device_halves(torch, "K2 block", lambda: middle_block_w8(*ops_k2), BLOCK_LAUNCHES)
+    taps, _ = _scaled(dw, s_w, s_in, s_dq)
+    a = torch.relu(x).float().permute(0, 3, 1, 2)
+    taps = taps[0].t().reshape(C, 1, 3, 3)
+    q = torch.randint(-127, 128, (M, C), dtype=torch.int8, device=x.device)
+    pw_t = pw_q[0, :, :C].contiguous().t()
+    lib, _ = in_turns(torch, {
+        "cuDNN depthwise": lambda: F.conv2d(a, taps, padding=1, groups=C),
+        "torch._int_mm": lambda: torch._int_mm(q, pw_t),
+    }, 20)
+    io = M * C * x.element_size()  # an activation in the I/O dtype
+    bytes_mm = M * ldk + io + C * ldk  # A, out, the weight
+    ops = 2 * M * C * C
+    bound_dw = bound_ms(io + M * ldk, 0, PEAK_INT8)
+    bound_mm = bound_ms(bytes_mm, ops, PEAK_INT8)
+    bound_res = bound_ms(bytes_mm + io, ops, PEAK_INT8)
+    floor = 3 * bound_dw[0] + 2 * bound_mm[0] + bound_res[0]
+    say(f"time K2 halves ({N},{H},{W},{C}) {str(x.dtype)[6:]}, device us per launch: "
+        f"{per_launch(halves)}; bounds: depthwise {bound_dw[0] * 1e3:.1f} ({bound_dw[1]}), GEMM "
+        f"{bound_mm[0] * 1e3:.1f} ({bound_mm[1]}; operations {ops / PEAK_INT8 * 1e6:.1f}), with "
+        f"the residual {bound_res[0] * 1e3:.1f} ({bound_res[1]}); yardsticks: cuDNN fp32 "
+        f"depthwise {lib['cuDNN depthwise'] * 1e3:.2f}, torch._int_mm "
+        f"{lib['torch._int_mm'] * 1e3:.2f}; two-launch floor {floor:.4f} ms per block [{smi}]")
 
 
 def time_k3(torch, scorer, smi: str):
@@ -1140,6 +1219,8 @@ def time_k5(torch, scorer, smi: str):
             "kernel": lambda: sepconv_unit(x, *ops5, **kw),
             "library": lambda: torch.relu(conv(x)),
         }, 20)
+        halves = device_halves(torch, f"K5 call (conv{3 + k})",
+                               lambda: sepconv_unit(x, *ops5, **kw), {"depthwise": 1, "GEMM": 1})
         for name in total:
             total[name] += ms[name]
         M = N * H * H
@@ -1149,7 +1230,8 @@ def time_k5(torch, scorer, smi: str):
         say(f"time K5 conv{3 + k} ({N},{H},{H},{Cin})->{Cout} bf16: kernel {ms['kernel']:.4f} ms "
             f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain "
             f"{ms['plain']:.4f} ms, cuDNN + cuBLAS unit {ms['library']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
+            f"{b_ms:.4f} ms ({by}); device us per launch: {per_launch(halves)}; runs {runs} "
+            f"[{smi}]")
     by = max(bound, key=bound.get)
     say(f"time K5, conv3 + conv4 of 256 frames: kernel {total['kernel']:.4f} ms, plain "
         f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "

@@ -46,9 +46,11 @@ Then each variant's device time per launch of each half (``torch.profiler``),
 ``ptxas``'s register and spill counts of the built K1 kernels, and the
 shared-memory loads (``LDS``) in the depthwise's SASS. The same section
 times the depthwise's other callers, K5 (conv3, conv4 of 256 frames at
-8^2) and K2 (one block at K1's shape), as built and with ``one slab a
-block`` (small images staged 64 channels a block instead of 128) and
-with ``128-thread blocks``.
+8^2) and K2 (one block at K1's shape), as built, with ``one slab a
+block`` (small images staged 64 channels a block instead of 128), with
+``128-thread blocks``, and with the ``GEMM without epilogue`` (the
+persistent GEMM's loads and MMAs alone, no residual), each half's device
+time per launch.
 
 ``--against DIR``: K1 (both tap orders), K2, K5 (conv3, conv4 of 256
 frames) and K4 (the four stride-2 pairs, whose GEMM epilogue is shared
@@ -56,7 +58,8 @@ with K1's) built from ``DIR``'s sources (an older checkout, say the parent
 commit unpacked with ``git archive``) beside this tree's, through the
 wrappers at the main path's shapes, in turns (older, this, this, older),
 with each pair's outputs compared and the depthwise's ``LDS`` count of
-both builds.
+both builds; for K2 and K5 also each build's device time per launch of
+each kernel (``torch.profiler``).
 
 Prints one line per measurement, then the card's name, power limit and SM
 clock.
@@ -175,6 +178,12 @@ DW_VARIANTS = {
     "one slab a block": [("sm90_common.cuh", "l->chans = whole && C > DW_CC",
                           "l->chans = false && C > DW_CC")],
     "128-thread blocks": K1_VARIANTS["128-thread blocks"],
+    # the persistent GEMM's loads and MMAs alone: no epilogue, no residual
+    "GEMM without epilogue": [
+        ("bf16_gemm.cuh", "    store_tile<T, RELU_OUT, P_STAGED, RESID>(d, &map_out,",
+         "    if (M < 0) store_tile<T, RELU_OUT, P_STAGED, RESID>(d, &map_out,"),
+        ("middle_block_w8.cu", "const T* resid = r + 1 == reps ? x : nullptr;",
+         "const T* resid = nullptr;")],
 }
 K1_SHAPE = (256, 16, 728, 736)  # N, H = W, C, the packed weight's row length
 BOUNDS_US = "depthwise 57.3, GEMM 70.2 (reps 0-1) and 86.1 (rep 2) us"  # PERF.md §6
@@ -300,8 +309,8 @@ def device_us(torch, fn) -> dict:
     """Device time per launch (us) and launches of each kernel of one ``fn()``."""
     import chip_smoke
 
-    return {e.key: (e.self_device_time_total / e.count, e.count)
-            for e in chip_smoke.device_kernels(torch, fn)}
+    return {key: (us / n, round(n / chip_smoke.PROFILED_CALLS))
+            for key, (us, n) in chip_smoke.device_kernels(torch, fn).items()}
 
 
 def lds_count(so: Path) -> dict:
@@ -359,7 +368,8 @@ def section_k1(torch, work: Path, csrc: Path) -> None:
 
 
 def section_dw(torch, work: Path, csrc: Path) -> None:
-    """K5 and K2, the depthwise's other callers, per DW_VARIANTS, in turns."""
+    """K5 and K2, the depthwise's other callers, per DW_VARIANTS, in turns,
+    with each half's device time per launch."""
     import chip_smoke
     from multimodal_deepfake_detection_tpu_torch.ops.kernels import middle_block_w8 as mb8
     from multimodal_deepfake_detection_tpu_torch.ops.kernels import sepconv_unit as su
@@ -383,10 +393,12 @@ def section_dw(torch, work: Path, csrc: Path) -> None:
         fns = {name: through(modules[k], libs[(name, k)], fn) for name in DW_VARIANTS}
         line = in_turns(torch, fns, 10)
         per = {name: device_us(torch, f) for name, f in fns.items()}
+        halves = {name: "; ".join(f"{'depthwise' if 'dw3x3' in key else 'GEMM'} {us:.2f} us x{n}"
+                                  for key, (us, n) in per[name].items()
+                                  if "dw3x3" in key or "persistent_kernel" in key)
+                  for name in fns}
         print(f"[chip_variants] {label}: " + ", ".join(
-            f"{name} {line[name]:.4f} ms (depthwise "
-            + "; ".join(f"{us:.2f} us x{n}" for key, (us, n) in per[name].items() if "dw3x3" in key)
-            + ")" for name in fns), flush=True)
+            f"{name} {line[name]:.4f} ms ({halves[name]})" for name in fns), flush=True)
 
 
 def section_against(torch, work: Path, csrc: Path, older: Path) -> None:
@@ -439,6 +451,11 @@ def section_against(torch, work: Path, csrc: Path, older: Path) -> None:
         ms = in_turns(torch, {"older": a, "this": t}, 10)
         print(f"[chip_variants] {label}: older {ms['older']:.4f} ms, this {ms['this']:.4f} ms, "
               f"outputs identical: {same}", flush=True)
+        if k in ("K2", "K5"):  # the two halves of each build
+            for tag, fn in (("older", a), ("this", t)):
+                print(f"[chip_variants] {label} {tag}, device us per launch: " + "; ".join(
+                    f"{key[:60]} {us:.2f} (x{n})" for key, (us, n) in device_us(torch, fn).items()),
+                    flush=True)
 
 
 def main(argv) -> int:

@@ -8,12 +8,13 @@ middle_block_pos_pallas_w8`` (``_pos_q_kernel``), with weights packed as
 What bounds it on an H100, at 256 frames of 16x16x728: the three int8
 GEMMs, 3 x 2 x 65,536 x 728^2 = 208.4 G operations at 1,979 TOPS, 0.105 ms;
 reading the block's input and writing its output once is 190.8 MB, 0.057 ms
-at 3.35 TB/s. The design is K1's simple form: per rep one memory-bound
-depthwise kernel (K1's, in ``csrc/sm90_common.cuh``) that writes the int8
-codes of the GEMM operand, then one warp-specialised ``wgmma`` s8 GEMM (TMA
-into swizzled shared memory) whose epilogue fuses the dequant scale, the
-bias, the residual and the output cast. That moves about 0.95 GB per block.
-Both int8 operands have rows padded to 64 bytes (``ldk`` = 768 at C = 728):
+at 3.35 TB/s. The design is K1's two launches per rep with int8 operands:
+the depthwise kernel (K1's, in ``csrc/sm90_common.cuh``) writes the int8
+codes of the GEMM operand, then K1's persistent GEMM (``csrc/bf16_gemm.cuh``,
+one CTA per SM, a TMA ring across tiles) runs ``wgmma`` s8 and an epilogue
+that applies the dequant scale and the bias, adds the residual on the last
+rep and stores through shared memory by TMA. With the operand through device
+memory the block's floor is 0.290 ms. Both int8 operands have rows padded to 64 bytes (``ldk`` = 768 at C = 728):
 TMA needs 16-byte row strides, and 64-byte row starts load faster.
 
 Rounding points match ``_pos_q_kernel``: each rep's input is ReLU'd and

@@ -9,9 +9,11 @@ built by ``_build.py`` and bound through ``ctypes``.
 What bounds it on an H100: its targets are the exit sepconvs conv3 (1024 ->
 1536) and conv4 (1536 -> 2048) at 8^2, 51.5 and 103 GFLOP of bf16 pointwise
 work at 256 frames against well under 0.04 ms of activation traffic: bound
-by operations. The design is two launches, K1's tiled depthwise writing the
-bf16 GEMM operand and K1's TMA/``wgmma`` GEMM with a bias (+ ReLU) epilogue
-that stores in x's dtype; keeping the depthwise result on chip is later work.
+by operations. The design is K1's two launches: its tiled depthwise writing
+the bf16 GEMM operand, and its persistent TMA/``wgmma`` GEMM
+(``csrc/bf16_gemm.cuh``) with a bias (+ ReLU) epilogue that stores in x's
+dtype through shared memory by TMA; keeping the depthwise result on chip is
+later work.
 The TPU's row stripes (``row_tile``) are VMEM scheduling and not carried over.
 
 Rounding points match ``_unit_kernel``: the input is ReLU'd (with

@@ -176,11 +176,15 @@ def test_entry_pair_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype, 
     _close(got, entry_pair_ref(*ops, **kw))
 
 
+# K5's GEMM is the persistent one: (7, 8, 8) is M = 448, a ragged last M
+# tile, in bf16 and fp32 (two staging passes) with either trailing ReLU
 @pytest.mark.parametrize(
     "N,H,Cin,Cout,dtype,lead,trail",
     [(15, 8, 1024, 1536, torch.bfloat16, False, True), (15, 1, 1536, 2048, torch.bfloat16, False, True),
      (3, 2, 1024, 1536, torch.bfloat16, True, False), (5, 9, 40, 16, torch.bfloat16, True, True),
-     (3, 2, 1536, 2048, torch.float32, False, False), (7, 16, 728, 728, torch.bfloat16, True, False)],
+     (3, 2, 1536, 2048, torch.float32, False, False), (7, 16, 728, 728, torch.bfloat16, True, False),
+     (7, 8, 1024, 1536, torch.bfloat16, False, True), (7, 8, 1024, 1536, torch.bfloat16, False, False),
+     (7, 8, 1024, 1536, torch.float32, False, True), (7, 8, 1024, 1536, torch.float32, True, False)],
 )
 def test_sepconv_unit_kernel_matches_plain(cuda, N, H, Cin, Cout, dtype, lead, trail):
     g = torch.Generator().manual_seed(N * 1000 + H * 10 + Cin)
@@ -237,10 +241,14 @@ def test_entry_block_kernel_matches_plain(cuda, N, H, W, Cin, Cmid, Cout, dtype,
     assert (got.float() - ref.float()).abs().mean().item() <= 1e-3
 
 
+# K2's GEMM is the persistent one: N = 257 at 16 x 16 is a ragged last M
+# tile over many waves; fp32 I/O at 16 x 16 takes two staging passes, the
+# second's residual loaded once the first has drained
 @pytest.mark.parametrize(
     "N,H,C,dtype",
     [(15, 4, 728, torch.bfloat16), (3, 2, 728, torch.bfloat16), (1, 1, 728, torch.bfloat16),
-     (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16), (17, 16, 728, torch.bfloat16)],
+     (5, 4, 728, torch.float32), (4, 8, 40, torch.bfloat16), (17, 16, 728, torch.bfloat16),
+     (257, 16, 728, torch.bfloat16), (5, 16, 728, torch.float32)],
 )
 def test_middle_block_w8_kernel_matches_plain(cuda, N, H, C, dtype):
     """K2 with per-channel ``s_in``; the int8 pointwise rows' padding past C
@@ -261,6 +269,53 @@ def test_middle_block_w8_kernel_matches_plain(cuda, N, H, C, dtype):
     assert middle_block_w8.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(got, middle_block_w8_ref(*ops))
+
+
+def _launches_per_call(fn, keys, calls=4) -> dict:
+    """Device kernels per ``fn()`` whose names hold each of ``keys`` (and
+    ``"all"``), by ``torch.profiler`` over ``calls`` calls in one window
+    after a warm-up call, rounded: the profiler can lose kernel records on
+    the card, never add any, so of three windows the fullest is kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = max(best, names, key=len)
+    counts = {k: sum(k in n for n in best) for k in keys}
+    counts["all"] = len(best)
+    return {k: round(n / calls) for k, n in counts.items()}
+
+
+@pytest.mark.parametrize("kernel", ["middle_block_w8", "sepconv_unit"])
+def test_device_launches(cuda, kernel):
+    """One K2 block is 6 device launches (3 depthwise, 3 persistent GEMM, the
+    last with the residual) beside the wrapper's fp32 ops; one K5 call is 2
+    (the depthwise, the persistent GEMM)."""
+    g = torch.Generator().manual_seed(3)
+    C = 728
+    x = torch.randn((15, 8, 8, C), generator=g).to(cuda, torch.bfloat16)
+    if kernel == "middle_block_w8":
+        ops = (x, (torch.randn((3, 9, C), generator=g) * 0.2).to(cuda),
+               torch.randint(-127, 128, (3, C, 768), generator=g, dtype=torch.int8).to(cuda),
+               (torch.rand((3, C), generator=g) * 1e-2 + 1e-3).to(cuda),
+               torch.full((3, C), 2.5 / 127.0, device=cuda), torch.full((3,), 2.5 / 127.0, device=cuda),
+               (torch.randn((3, C), generator=g) * 0.1).to(cuda))
+        got = _launches_per_call(lambda: middle_block_w8(*ops),
+                                 ("dw3x3", "persistent_kernel", "false, true>"))  # RESID last
+        assert (got["dw3x3"], got["persistent_kernel"], got["false, true>"]) == (3, 3, 1), got
+    else:
+        ops = (x, (torch.randn((9, C), generator=g) * 0.3).to(cuda), _rows(g, 1024, C, cuda),
+               (torch.randn(1024, generator=g) * 0.1).to(cuda))
+        got = _launches_per_call(lambda: sepconv_unit(*ops, leading_relu=False, trailing_relu=True),
+                                 ("dw3x3", "persistent_kernel"))
+        assert got == {"dw3x3": 1, "persistent_kernel": 1, "all": 2}, got
 
 
 @pytest.mark.parametrize(
