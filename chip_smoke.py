@@ -18,7 +18,8 @@ raises and exits non-zero:
    N = 1 at widths past the first design's staged band (W > 512; > 1024 for
    the int8 depthwise); K1 in both tap orders, K4 with each JAX entry
    point's switches; then the device launches of one K4 pair (2) and one K3
-   block (4) at each stride-2 block's shape, counted by ``torch.profiler``;
+   block (4) at each stride-2 block's shape, counted in a captured CUDA
+   graph;
 4. slice: a seeded full-width XceptionLSTMV + ArcFace bundle in the JAX
    format and a few uint8 clips at 256^2, scored through the port's CLI
    (``cli/serve.py --engine visual``, bf16 on CUDA), on the fp path, with
@@ -33,22 +34,36 @@ raises and exits non-zero:
    int8-depthwise; each route alone), against the plain path on the same
    calibrated tree and against the plain fp32 path; per quant mode two
    controls, wrong trees put in the program's place, and on each kernel
-   route one, a wrong operand, each of which must fail its bars;
+   route one, a wrong operand, each of which must fail its bars; then
+   ``w8a8-pallas`` calibrated without and with one refinement pass, the
+   refined no further from plain fp32;
 5. times on the card (CUDA events after warmup): each kernel against its
    plain version and against PyTorch's own calls for the same function (K3
    per stride-2 block, K4 per stride-2 pair beside the first design's
    four-launch pair (two K5 units), K5 per exit conv, of 256 frames, with
-   its depthwise and GEMM halves, one call being 2 device launches; the
-   two halves of K1 and of K2 per launch by ``torch.profiler`` beside their
+   its depthwise and GEMM halves, one call being 2 device launches; the two
+   halves of K1 and of K2 per launch by ``torch.profiler`` beside their
    bounds and cuDNN's depthwise and cuBLAS's ``addmm`` (K2:
    ``torch._int_mm``) alone, one block being 6 device launches, 3 of each
-   half), and
-   the slice's frames/s, fp (plain, K1, each route) and w8a8,
-   in turns; then the device busy share and the top kernels of one scored
-   batch per kernel path (``torch.profiler``).
+   half; launches counted in a captured CUDA graph), and the slice's
+   frames/s, fp (plain, K1, each route) and w8a8, in turns; then the device
+   busy share and the top kernels of one scored batch per kernel path
+   (``torch.profiler``); then the same at the audio path's shapes: each
+   kernel, the MFCC frontend alone, clips/s of 64 one-second clips (plain,
+   K1, all routes, ``w8a8-pallas``) and profiles;
+6. audio and AV: each kernel against its plain version at the audio path's
+   shapes (64 one-second clips: 6,464 MFCC images of 64^2) runs in phase 3;
+   here the MFCC frontend on the card against the CPU, a seeded full-width
+   XceptionLSTMA bundle (hidden 512) and waveforms of 0.5, 1.0 and 2.3 s
+   scored through ``cli/serve.py --engine audio`` on the same four paths,
+   counted; every path, route and quant mode through ``AudioScorer``,
+   counted, against the plain paths, each with its control at the audio
+   bars; both engines' refined calibration; ``--engine av`` against the two
+   engines' own fusion.
 
 The line before the last is the card's ``name, power.limit``; the one before
-that the ``{"kernels": [...]}`` record; the last line is
+that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
+the same readings at the audio path's shapes); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -77,6 +92,15 @@ QUANT_KERNEL_BARS = (1 - 2e-6, 5e-4)
 # against the plain fp32 path: sound 1 - cos <= 1.47e-6 and |d| <= 1.46e-3,
 # the clipping-calibration control 1 - cos >= 3.3e-5 and |d| >= 2.1e-3
 QUANT_FP32_BARS = (1 - 1e-5, 2e-3)
+# The audio path's w8a8 bars, on the same footing (PERF.md §2): MFCC images
+# are in dB-scaled units in the hundreds, and they set the activation scales.
+# Against the plain path on the same tree: sound 1 - cos <= 8.4e-6 (the
+# hybrid's bf16 K1; the int8 modes bit-exact), against plain fp32: sound
+# 1 - cos <= 6.8e-5 and score |d| <= 1.6e-5 (the random head gives every
+# clip nearly one score); the clipping calibration's control 1 - cos >= 2.1e-2
+# against either (NVIDIA H100 80GB HBM3, 700 W)
+AUDIO_QUANT_KERNEL_BARS = (1 - 5e-5, 5e-4)
+AUDIO_QUANT_FP32_BARS = (1 - 1e-3, 2e-3)
 PEAK_BF16 = 989e12  # H100 SXM, dense, FLOP/s
 PEAK_INT8 = 1979e12  # OP/s
 PEAK_BYTES = 3.35e12  # B/s
@@ -187,6 +211,30 @@ ROUTES = {  # VisualScorer keyword, CLI flags, launches per backbone call, the s
     "entry_pair": ({"entry_pair": True}, ["--entry_pair", "true"], dict(k1=8, k4=4), "block12"),
     "fuse_exit": ({"fuse_exit": True}, ["--fuse_exit", "true"], dict(k1=8, k5=2), "exit"),
 }
+# The audio path (phases 3, 5 and 6): 64 one-second clips are 64 x 101 MFCC
+# images of 64^2; the kernels at its shapes (N = 6,464): the 4 x 4 middle
+# trunk (K1, K2), the stride-2 blocks at 29^2, 15^2, 8^2 and 4^2 (K3, K4),
+# the 2 x 2 exit (K5), and block 1's second depthwise at 29^2 (the int8
+# depthwise's largest audio site).
+AUDIO_N = 64 * 101
+AUDIO_K3_BLOCKS = (
+    (AUDIO_N, 29, 29, 64, 128, 128, False, "bfloat16"),
+    (AUDIO_N, 15, 15, 128, 256, 256, True, "bfloat16"),
+    (AUDIO_N, 8, 8, 256, 728, 728, True, "bfloat16"),
+    (AUDIO_N, 4, 4, 728, 728, 1024, True, "bfloat16"),
+)
+AUDIO_K5_CONVS = (
+    (AUDIO_N, 2, 1024, 1536, False, True, "bfloat16"),
+    (AUDIO_N, 2, 1536, 2048, False, True, "bfloat16"),
+)
+AUDIO_DW = (AUDIO_N, 29, 128)
+SR, HOP = 16000, 160
+# the waveforms scored through the CLI: 0.5, 1.0 and 2.3 s, batch_size 2 ->
+# 2 backbone calls (the sample buckets 16,000 and 48,000)
+WAVE_SAMPLES = (8000, 16000, 36800)
+AUDIO_BATCH = 2
+MFCC_TOL = 2e-3  # max |d| of the MFCC on the card against the CPU's
+AV_ALPHA = 0.3
 # A random model's features wash out faults in the middle of the network
 # (PERF.md §6), so each route is also held at the output of its last kernel's
 # stage (``upto=``), per frame, against the plain fp32 path: 1 - cos <= 1e-3.
@@ -194,6 +242,12 @@ ROUTES = {  # VisualScorer keyword, CLI flags, launches per backbone call, the s
 # wrong operands 6.3e-3 (middle taps) and 7.4e-3 (pair), and conv4's bias
 # dropped fails the feature bars too (1 - cos 0.65).
 STAGE_COS_MIN = 1 - 1e-3
+# The audio stage bar: MFCC images carry a large common component, so a
+# route's stage output moves less under a fault. On the card: sound 1 - cos
+# <= 4.6e-5; the controls 8.2e-4 (pair's pw1 x4), 0.59 (conv4's bias
+# dropped), and for the middle flow, whose last-rep taps x4 read 4.9e-5, the
+# last rep's bias x4 (a CPU rehearsal: 2.8e-3)
+AUDIO_STAGE_COS_MIN = 1 - 2e-4
 
 
 def say(msg: str) -> None:
@@ -438,8 +492,8 @@ def phase_kernels(torch) -> dict:
     # device launches per call of the redesigned K4 and K3
     for i, (N, H, W, Cin, Cmid, Cout, lead, dtype) in enumerate(K3_BLOCKS):
         ops = k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed=760 + i)
-        n4 = device_launches(torch, lambda: entry_pair(*ops[:7], leading_relu0=lead))
-        n3 = device_launches(torch, lambda: entry_block(*ops, leading_relu0=lead))
+        n4 = graph_kernels(torch, lambda: entry_pair(*ops[:7], leading_relu0=lead))
+        n3 = graph_kernels(torch, lambda: entry_block(*ops, leading_relu0=lead))
         say(f"device launches at ({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout}: K4 pair {n4}, "
             f"K3 block {n3}")
         if (n4, n3) != (2, 4):
@@ -476,13 +530,41 @@ def device_kernels(torch, fn, attempts: int = 3) -> dict:
     return best
 
 
-def device_launches(torch, fn) -> int:
-    """The number of kernels the device ran for one ``fn()``."""
-    return round(sum(n for _, n in device_kernels(torch, fn).values()) / PROFILED_CALLS)
+def graph_kernels(torch, fn) -> int:
+    """The kernels one ``fn()`` launches: the kernel nodes of a CUDA graph
+    captured around it. ``torch.profiler`` on the card drops kernel records
+    (in some runs every window lost one kernel's launches); a capture keeps
+    every launch made on the stream."""
+    import ctypes
+
+    fn()  # builds, and allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"CUDA driver error {err} reading a captured graph")
+
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kernels, kind = 0, ctypes.c_int()
+    for node in nodes:
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
 
 
-def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None:
-    """Seeded full-width XceptionLSTMV + ArcFace, random BN statistics, JAX format."""
+def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0,
+                 arcface: bool = True) -> None:
+    """Seeded full-width XceptionLSTMV + ArcFace (``arcface=False``: an
+    XceptionLSTMA, whose MLP head serves without ArcFace), random BN
+    statistics, JAX format."""
     from multimodal_deepfake_detection_tpu_torch.core.checkpoint import save_bundle
     from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
     from multimodal_deepfake_detection_tpu_torch.ops.conv import BatchNorm
@@ -501,8 +583,10 @@ def write_bundle(torch, path: str, hidden_dim: int = 128, seed: int = 0) -> None
             bn.mean.copy_(0.1 * torch.randn(n, generator=g))
             bn.var.copy_(0.5 + torch.rand(n, generator=g))
     params, state = xception_lstm_to_jax(model)
-    arc = arcface_to_jax(ArcFace(hidden_dim, 2, generator=g))
-    save_bundle(path, {"model": params, "arcface": arc, "state": state})
+    trees = {"model": params, "state": state}
+    if arcface:
+        trees["arcface"] = arcface_to_jax(ArcFace(hidden_dim, 2, generator=g))
+    save_bundle(path, trees)
 
 
 def counters():
@@ -544,21 +628,25 @@ def per_call(calls: int, k1=0, k1b=0, k2=0, dw=0, k3=0, k4=0, k5=0) -> dict:
             "entry_pair": k4 * calls, "sepconv_unit": k5 * calls}
 
 
-def run_cli(torch, workdir, bundle, clip_dir, label, flags, expected):
-    """Score the clips through the port's CLI with the extra ``flags``,
-    counting launches; checks the JSONL; returns the scores."""
+def visual_argv(bundle: str, clip_dir: str) -> list:
+    return ["--engine", "visual", "--ckpt_path", bundle, "--input", clip_dir,
+            "--batch_size", str(BATCH_SIZE)]
+
+
+def run_cli(torch, workdir, argv, label, flags, expected, n_inputs: int = len(CLIP_LENGTHS)):
+    """Score through the port's CLI (``argv``: engine, bundle, inputs) with
+    the extra ``flags``, bf16 on CUDA, counting launches; checks the JSONL;
+    returns the scores."""
     from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
 
-    out = os.path.join(workdir, f"scores_{label}.jsonl")
-    argv = ["--engine", "visual", "--ckpt_path", bundle, "--input", clip_dir, "--output", out,
-            "--batch_size", str(BATCH_SIZE), "--compute_dtype", "bfloat16", "--device", "cuda"]
-    emitted = counted(torch, f"slice CLI {label}",
-                      lambda: cli_serve.main(argv + flags, log=say), expected)
+    out = os.path.join(workdir, f"scores_{label.replace(' ', '_')}.jsonl")
+    argv = argv + ["--output", out, "--compute_dtype", "bfloat16", "--device", "cuda"] + flags
+    emitted = counted(torch, label, lambda: cli_serve.main(argv, log=say), expected)
     recs = [json.loads(line) for line in open(out)]
     scores = np.array([r["score"] for r in recs], np.float64)
-    if len(recs) != len(CLIP_LENGTHS) or not (np.isfinite(scores).all() and (0 <= scores).all()
-                                              and (scores <= 1).all()):
-        raise AssertionError(f"bad JSONL output ({emitted} clips): {recs}")
+    if len(recs) != n_inputs or not (np.isfinite(scores).all() and (0 <= scores).all()
+                                     and (scores <= 1).all()):
+        raise AssertionError(f"bad JSONL output ({emitted} inputs): {recs}")
     return scores
 
 
@@ -617,13 +705,14 @@ def phase_slice(torch, workdir: str) -> dict:
 
     # the main paths: the CLI, fp, --quantize w8a8-pallas and --fuse_entry true
     launches = per_call(calls, k1=8)
-    fp_scores = run_cli(torch, workdir, bundle, clip_dir, "fp", [], launches)
+    argv = visual_argv(bundle, clip_dir)
+    fp_scores = run_cli(torch, workdir, argv, "slice CLI fp", [], launches)
     expected = per_call(calls, k2=8, dw=10)
-    q_scores = run_cli(torch, workdir, bundle, clip_dir, "w8a8-pallas",
+    q_scores = run_cli(torch, workdir, argv, "slice CLI w8a8-pallas",
                        ["--quantize", "w8a8-pallas"], expected)
     launches.update(middle_block_w8=expected["middle_block_w8"], dw_w8a8=expected["dw_w8a8"])
     expected = per_call(calls, k1=8, k3=4)
-    fused_scores = run_cli(torch, workdir, bundle, clip_dir, "fuse_entry",
+    fused_scores = run_cli(torch, workdir, argv, "slice CLI fuse_entry",
                            ["--fuse_entry", "true"], expected)
     launches.update(entry_block=expected["entry_block"])
 
@@ -688,6 +777,9 @@ def phase_slice(torch, workdir: str) -> dict:
         held(torch, f"control {mode}, clipping calibration, vs plain fp32",
              outputs(torch, kern, batches), ref, QUANT_FP32_BARS, control=True)
         kern.qbackbone = sound
+    refined_held(torch, "slice", lambda: VisualScorer.from_bundle(bundle, quantize="w8a8-pallas",
+                                                                  **kw),
+                 batches[0][0], lambda sc: outputs(torch, sc, batches), ref)
     return launches
 
 
@@ -724,15 +816,20 @@ class WrongOperand:
     - middle_taps: the last rep's taps of every middle block 4x too large;
     - entry_pair: unit 1's pointwise weight of every stride-2 block 4x too
       large (the pair's output, and so its share of the block, 4x);
-    - fuse_exit: conv4's bias dropped (an epilogue that skips it)."""
+    - fuse_exit: conv4's bias dropped (an epilogue that skips it).
+    On the audio path (``audio=True``) the middle flow's last-rep bias goes
+    4x instead: its stage barely moves with the taps (AUDIO_STAGE_COS_MIN)."""
 
     WHAT = {"middle_taps": "last-rep taps x4", "entry_pair": "pw1 x4",
             "fuse_exit": "conv4 bias dropped"}
 
-    def __init__(self, torch, scorer, route: str):
+    def __init__(self, torch, scorer, route: str, audio: bool = False):
         fb = scorer.folded_backbone
+        self.what = self.WHAT[route]
         if route == "middle_taps":
-            sites = [(b, "k1_dw") for b in fb.blocks if b.is_middle]
+            operand = "k1_b" if audio else "k1_dw"
+            self.what = "last-rep bias x4" if audio else self.what
+            sites = [(b, operand) for b in fb.blocks if b.is_middle]
             wrong = lambda t: torch.cat([t[:2], 4 * t[2:]])
         elif route == "entry_pair":
             sites = [(b, "k3_pw1") for b in fb.blocks if b.is_entry]
@@ -740,7 +837,7 @@ class WrongOperand:
         else:
             sites = [(fb.conv4, "k5_b")]
             wrong = torch.zeros_like
-        self.sites, self.wrong, self.what = sites, wrong, self.WHAT[route]
+        self.sites, self.wrong = sites, wrong
 
     def __enter__(self):
         self.sound = [getattr(m, name) for m, name in self.sites]
@@ -753,21 +850,21 @@ class WrongOperand:
             setattr(m, name, t)
 
 
-def stage_held(torch, label, scorer, plain, frames, upto, *, control: bool = False) -> None:
+def stage_held(torch, label, scorer, plain, x, upto, *, control: bool = False,
+               cos_min: float = STAGE_COS_MIN) -> None:
     """``scorer``'s backbone up to ``upto`` against ``plain``'s (the plain
-    fp32 path) on the uint8 ``frames``: min per-frame cosine against
-    STAGE_COS_MIN. A control must fail it."""
+    fp32 path) on the images ``x``: min per-image cosine against ``cos_min``.
+    A control must fail it."""
     def stage(sc):
         with torch.inference_mode():
-            h = sc.folded_backbone(sc._frames_to_x(frames), use_kernels=sc.use_kernels,
-                                   upto=upto, **sc.routes)
+            h = sc.folded_backbone(x, use_kernels=sc.use_kernels, upto=upto, **sc.routes)
         return h.flatten(1).double()
 
     cos = torch.nn.functional.cosine_similarity(stage(scorer), stage(plain), dim=-1).min().item()
-    ok = cos >= STAGE_COS_MIN
+    ok = cos >= cos_min
     verdict = ("; control: fails, as it must" if not ok else "; control: PASSES") if control else ""
-    say(f"{label}: {upto} output per frame 1 - cos max {1 - cos:.3e} "
-        f"(<= {1 - STAGE_COS_MIN:.1e}){verdict}")
+    say(f"{label}: {upto} output per image 1 - cos max {1 - cos:.3e} "
+        f"(<= {1 - cos_min:.1e}){verdict}")
     if ok == control:
         raise AssertionError(f"{label}: " + ("the control passes the bar" if control
                                              else "disagreement"))
@@ -785,7 +882,8 @@ def slice_routes(torch, workdir, bundle, clip_dir, batches, plain, ref, kw) -> d
     per_backbone = dict(k1b=8, k4=4, k5=2)
     flags = [f for _, cli_flags, _, _ in ROUTES.values() for f in cli_flags]
     expected = per_call(calls, **per_backbone)
-    cli_scores = run_cli(torch, workdir, bundle, clip_dir, "routes", flags, expected)
+    cli_scores = run_cli(torch, workdir, visual_argv(bundle, clip_dir), "slice CLI routes",
+                         flags, expected)
     every = {k: v for route, _, _, _ in ROUTES.values() for k, v in route.items()}
     scorer = VisualScorer.from_bundle(bundle, **every, **kw)
     got = counted(torch, "slice routes (VisualScorer)", lambda: outputs(torch, scorer, batches),
@@ -793,21 +891,305 @@ def slice_routes(torch, workdir, bundle, clip_dir, batches, plain, ref, kw) -> d
     held(torch, "slice routes vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
     if np.abs(got[0] - cli_scores).max() > 1e-4:
         raise AssertionError("the CLI's routes scores differ from VisualScorer's")
-    frames = batches[0][0]
+    x = plain._frames_to_x(batches[0][0])
     for name, (route, _, per_backbone, upto) in ROUTES.items():
         scorer = VisualScorer.from_bundle(bundle, **route, **kw)
         got = counted(torch, f"slice {name} (VisualScorer)",
                       lambda: outputs(torch, scorer, batches), per_call(2 * calls, **per_backbone))
         held(torch, f"slice {name} vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
-        stage_held(torch, f"slice {name} vs plain fp32", scorer, plain, frames, upto)
+        stage_held(torch, f"slice {name} vs plain fp32", scorer, plain, x, upto)
         with WrongOperand(torch, scorer, name) as what:
-            stage_held(torch, f"control {name}, {what}, vs plain fp32", scorer, plain, frames,
+            stage_held(torch, f"control {name}, {what}, vs plain fp32", scorer, plain, x,
                        upto, control=True)
             if name == "fuse_exit":  # the exit's fault reaches the features
                 held(torch, f"control {name}, {what}, vs plain fp32",
                      outputs(torch, scorer, batches), ref, (FEATURE_COS_MIN, SCORE_TOL),
                      control=True)
     return {k: expected[k] for k in ("middle_block_bf16taps", "entry_pair", "sepconv_unit")}
+
+
+def phase_audio_kernels(torch) -> dict:
+    """Each kernel against its plain version at the audio path's shapes, on
+    random inputs (MFCC images are constant along W and would hide a column
+    fault); returns the worst max |d| of each."""
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
+        entry_block,
+        entry_block_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import (
+        entry_pair,
+        entry_pair_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
+        middle_block,
+        middle_block_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import (
+        middle_block_w8,
+        middle_block_w8_ref,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import (
+        sepconv_unit,
+        sepconv_unit_ref,
+    )
+
+    worst = dict.fromkeys(KERNELS, 0.0)
+
+    def hold(name, label, got, ref, **kw):
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], compare(torch, f"audio {label}", got, ref, **kw))
+
+    N = AUDIO_N
+    ops = k1_operands(torch, N, 4, 728, "bfloat16", 736, seed=1000)
+    for taps, name in (("fp32", "middle_block"), ("bf16", "middle_block_bf16taps")):
+        hold(name, f"K1 {taps} taps ({N},4,4,728)", middle_block(*ops, taps=taps),
+             middle_block_ref(*ops, taps=taps))
+    ops = k2_operands(torch, N, 4, 728, "bfloat16", seed=1001)
+    hold("middle_block_w8", f"K2 ({N},4,4,728)", middle_block_w8(*ops), middle_block_w8_ref(*ops),
+         int8=True, equal_min=1.0)
+    Nd, Hd, Cd = AUDIO_DW
+    ops = dw_operands(torch, Nd, Hd, Cd, "bfloat16", seed=1002)
+    hold("dw_w8a8", f"dw_w8a8 ({Nd},{Hd},{Hd},{Cd})", dw_w8a8(*ops, torch.bfloat16),
+         dw_w8a8_ref(*ops, torch.bfloat16), int8=True, equal_min=1.0)
+    del ops
+    for i, (N, H, W, Cin, Cmid, Cout, lead, dtype) in enumerate(AUDIO_K3_BLOCKS):
+        ops = k3_operands(torch, N, H, W, Cin, Cmid, Cout, dtype, seed=1010 + i)
+        shape = f"({N},{H},{W},{Cin}) {Cin}->{Cmid}->{Cout}"
+        hold("entry_block", f"K3 {shape}", entry_block(*ops, leading_relu0=lead),
+             entry_block_ref(*ops, leading_relu0=lead))
+        hold("entry_pair", f"K4 {shape}", entry_pair(*ops[:7], leading_relu0=lead),
+             entry_pair_ref(*ops[:7], leading_relu0=lead))
+        del ops
+    for i, (N, H, Cin, Cout, lead, trail, dtype) in enumerate(AUDIO_K5_CONVS):
+        ops = k5_operands(torch, N, H, Cin, Cout, dtype, seed=1020 + i)
+        kw = dict(leading_relu=lead, trailing_relu=trail)
+        hold("sepconv_unit", f"K5 ({N},{H},{H},{Cin})->{Cout}", sepconv_unit(*ops, **kw),
+             sepconv_unit_ref(*ops, **kw))
+        del ops
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_mfcc(torch) -> None:
+    """The MFCC frontend on the card against the same on the CPU, for seeded
+    waveforms of several lengths (one not a multiple of the hop), centred and
+    not: max |d| <= MFCC_TOL on values in the hundreds."""
+    from multimodal_deepfake_detection_tpu_torch.ops.mfcc import mfcc
+
+    rng = np.random.default_rng(40)
+    worst = 0.0
+    for L in (8000, 16000, 36833):
+        y = torch.from_numpy(rng.normal(0, 0.1, (3, L)).astype(np.float32))
+        for center in (True, False):
+            ref = mfcc(y, center=center)
+            got = mfcc(y.cuda(), center=center).cpu()
+            d = (got - ref).abs().max().item()
+            worst = max(worst, d)
+            say(f"MFCC on the card vs the CPU, (3,{L}) center={center}: max|d| {d:.3e} "
+                f"(<= {MFCC_TOL:.0e}; max|ref| {ref.abs().max().item():.1f})")
+            if not (torch.isfinite(got).all() and d <= MFCC_TOL):
+                raise AssertionError("the MFCC on the card disagrees with the CPU's")
+
+
+def audio_outputs(torch, scorer, batches):
+    """``scorer``'s scores and its per-frame features (fp64) of each batch's
+    frames of the true signal, ``1 + L // hop`` for waveforms padded to L."""
+    scores, feats = [], []
+    for waves in batches:
+        scores.append(scorer.score(waves))
+        n = 1 + waves.shape[1] // HOP
+        feats.append(scorer.frame_features(waves)[:, :n].reshape(-1, 2048).double())
+    return np.concatenate(scores), torch.cat(feats)
+
+
+def audio_bundle(torch, workdir: str) -> str:
+    """The seeded full-width XceptionLSTMA bundle (hidden 512), written once."""
+    bundle = os.path.join(workdir, "audio.npz")
+    if not os.path.exists(bundle):
+        write_bundle(torch, bundle, hidden_dim=512, seed=1, arcface=False)
+    return bundle
+
+
+def phase_audio(torch, workdir: str, smi: str) -> dict:
+    """The audio and AV serving paths (phase 6); returns the audio CLI's
+    launch counts."""
+    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
+    from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer
+
+    check_mfcc(torch)
+    bundle = audio_bundle(torch, workdir)
+    wave_dir = os.path.join(workdir, "waves")
+    os.makedirs(wave_dir)
+    rng = np.random.default_rng(41)
+    waves = [rng.normal(0, 0.1, L).astype(np.float32) for L in WAVE_SAMPLES]
+    for i, w in enumerate(waves):
+        np.save(os.path.join(wave_dir, f"wave{i}.npy"), w)
+    calls = -(-len(waves) // AUDIO_BATCH)
+    batches = [_pad_stack(waves[i : i + AUDIO_BATCH])[0]
+               for i in range(0, len(waves), AUDIO_BATCH)]
+    argv = ["--engine", "audio", "--ckpt_path", bundle, "--input", wave_dir,
+            "--batch_size", str(AUDIO_BATCH)]
+    kw = dict(device="cuda", sample_buckets=(16000, 48000, 160000))
+
+    # the CLI on the four paths, each counted
+    cli = {}
+    for label, flags, per_backbone in (
+            ("fp", [], dict(k1=8)),
+            ("w8a8-pallas", ["--quantize", "w8a8-pallas"], dict(k2=8, dw=10)),
+            ("fuse_entry", ["--fuse_entry", "true"], dict(k1=8, k3=4)),
+            ("routes", [f for _, fl, _, _ in ROUTES.values() for f in fl],
+             dict(k1b=8, k4=4, k5=2))):
+        expected = per_call(calls, **per_backbone)
+        cli[label] = (run_cli(torch, workdir, argv, f"audio CLI {label}", flags, expected,
+                              len(waves)), expected)
+    launches = dict(cli["fp"][1])  # each kernel's count on the path that runs it
+    for label, names in (("w8a8-pallas", ("middle_block_w8", "dw_w8a8")),
+                         ("fuse_entry", ("entry_block",)),
+                         ("routes", ("middle_block_bf16taps", "entry_pair", "sepconv_unit"))):
+        launches.update({k: cli[label][1][k] for k in names})
+
+    # every path through AudioScorer (score + frame_features: 2 backbone
+    # calls per batch), counted, against the plain fp32 path on the card
+    plain = AudioScorer.from_bundle(bundle, compute_dtype=torch.float32, use_kernels=False, **kw)
+    ref = audio_outputs(torch, plain, batches)
+    paths = {"fp": ({}, dict(k1=8)), "fuse_entry": ({"fuse_entry": True}, dict(k1=8, k3=4))}
+    paths.update({name: (route, per) for name, (route, _, per, _) in ROUTES.items()})
+    paths["routes"] = ({k: v for r, _, _, _ in ROUTES.values() for k, v in r.items()},
+                      dict(k1b=8, k4=4, k5=2))
+    x = plain._wave_to_imgs(batches[0], True)[0]
+    for name, (route, per_backbone) in paths.items():
+        scorer = AudioScorer.from_bundle(bundle, **route, **kw)
+        got = counted(torch, f"audio {name} (AudioScorer)",
+                      lambda: audio_outputs(torch, scorer, batches),
+                      per_call(2 * calls, **per_backbone))
+        held(torch, f"audio {name} vs plain fp32", got, ref, (FEATURE_COS_MIN, SCORE_TOL))
+        if name in cli and np.abs(got[0] - cli[name][0]).max() > 1e-4:
+            raise AssertionError(f"the audio CLI's {name} scores differ from AudioScorer's")
+        if name in ROUTES:
+            upto = ROUTES[name][3]
+            stage_held(torch, f"audio {name} vs plain fp32", scorer, plain, x, upto,
+                       cos_min=AUDIO_STAGE_COS_MIN)
+            with WrongOperand(torch, scorer, name, audio=True) as what:
+                stage_held(torch, f"control audio {name}, {what}, vs plain fp32", scorer, plain,
+                           x, upto, control=True, cos_min=AUDIO_STAGE_COS_MIN)
+        if name == "fuse_entry":
+            blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
+            sound = [b.k3_skw for b in blocks]
+            for b in blocks:
+                b.k3_skw = 4 * b.k3_skw
+            held(torch, "control audio fuse_entry, K3 skip weight x4, vs plain fp32",
+                 audio_outputs(torch, scorer, batches), ref, (FEATURE_COS_MIN, SCORE_TOL),
+                 control=True)
+            for b, skw in zip(blocks, sound):
+                b.k3_skw = skw
+
+    # every quant mode, counted, against the plain path on its calibrated
+    # tree and against plain fp32; control: a calibration that clips
+    for mode, per_backbone in (("w8a8-pallas", dict(k2=8, dw=10)),
+                               ("w8a8-hybrid", dict(k1=8, dw=10)), ("w8a8", dict(dw=34))):
+        kern = AudioScorer.from_bundle(bundle, quantize=mode, **kw)
+        kern.calibrate(batches[0])  # the CLI calibrates on its first batch
+        qplain = AudioScorer.from_bundle(bundle, quantize=mode, use_kernels=False, **kw)
+        qplain.qbackbone = sound = kern.qbackbone
+        got = counted(torch, f"audio {mode} (AudioScorer)",
+                      lambda: audio_outputs(torch, kern, batches),
+                      per_call(2 * calls, **per_backbone))
+        plain_out = audio_outputs(torch, qplain, batches)
+        held(torch, f"audio {mode} vs plain {mode}", got, plain_out, AUDIO_QUANT_KERNEL_BARS)
+        held(torch, f"audio {mode} vs plain fp32", got, ref, AUDIO_QUANT_FP32_BARS)
+        if mode == "w8a8-pallas" and np.abs(got[0] - cli[mode][0]).max() > 1e-4:
+            raise AssertionError("the audio CLI's w8a8-pallas scores differ from AudioScorer's")
+        # control: a calibration that clips, against the plain path on the
+        # sound tree and against plain fp32
+        kern.qbackbone = quantize_clipped(kern, calibrate_audio_amax(torch, kern, batches[0]),
+                                          mode)
+        clipped = audio_outputs(torch, kern, batches)
+        held(torch, f"control audio {mode}, clipping calibration, vs plain {mode}", clipped,
+             plain_out, AUDIO_QUANT_KERNEL_BARS, control=True)
+        held(torch, f"control audio {mode}, clipping calibration, vs plain fp32", clipped, ref,
+             AUDIO_QUANT_FP32_BARS, control=True)
+        kern.qbackbone = sound
+    refined_held(torch, "audio", lambda: AudioScorer.from_bundle(bundle, quantize="w8a8-pallas",
+                                                                 **kw),
+                 batches[0], lambda sc: audio_outputs(torch, sc, batches), ref)
+    check_av(torch, workdir, bundle)
+    return launches
+
+
+def calibrate_audio_amax(torch, scorer, waves):
+    from multimodal_deepfake_detection_tpu_torch.models.quant import calibrate_amax
+
+    with torch.inference_mode():
+        x = scorer._wave_to_imgs(waves, True)[0]
+    return calibrate_amax(scorer.fp_tree, x, compute_dtype=scorer.compute_dtype)
+
+
+def quantize_clipped(scorer, amaxes, mode):
+    """The tree of a calibration that clips: every activation scale halved."""
+    from multimodal_deepfake_detection_tpu_torch.models.quant import quantize_folded_xception
+
+    return quantize_folded_xception(scorer.fp_tree, amaxes, headroom=0.5, quant_depthwise=True,
+                                    skip_middle=mode == "w8a8-hybrid")
+
+
+def refined_held(torch, label, make, calib, outputs_of, ref) -> None:
+    """A ``w8a8-pallas`` scorer calibrated on ``calib`` without and with one
+    refinement pass (``calibrate(refine_passes=1)``), each against the plain
+    fp32 outputs ``ref``: the refined scorer must be no further from them,
+    by the relative error of all its per-frame features."""
+    readings = []
+    for passes in (0, 1):
+        scorer = make()
+        scorer.calibrate(calib, refine_passes=passes)
+        got = outputs_of(scorer)
+        rel = ((got[1] - ref[1]).norm() / ref[1].norm()).item()
+        cos = torch.nn.functional.cosine_similarity(got[1], ref[1], dim=-1).min().item()
+        readings.append(rel)
+        say(f"{label} w8a8-pallas refine_passes={passes} vs plain fp32: features relative error "
+            f"{rel:.4e}, per-frame 1 - cos max {1 - cos:.3e}, score max|d| "
+            f"{np.abs(got[0] - ref[0]).max():.3e}")
+    if readings[1] > readings[0]:
+        raise AssertionError(f"{label}: the refined calibration is further from plain fp32")
+
+
+def check_av(torch, workdir, audio_bundle) -> None:
+    """``cli/serve.py --engine av``: each clip of phase 4 paired by stem
+    with a waveform; the fused scores against ``alpha p_v + (1 - alpha) p_a``
+    of the two engines scored alone in this process, <= 1e-6 (the JSONL
+    keeps 6 places)."""
+    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
+    from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer, VisualScorer
+
+    clip_dir = os.path.join(workdir, "clips")
+    clips = [np.load(os.path.join(clip_dir, f"clip{i}.npy")) for i in range(len(CLIP_LENGTHS))]
+
+    wave_dir = os.path.join(workdir, "av_waves")
+    os.makedirs(wave_dir)
+    rng = np.random.default_rng(42)
+    waves = [rng.normal(0, 0.1, WAVE_SAMPLES[i % len(WAVE_SAMPLES)]).astype(np.float32)
+             for i in range(len(clips))]
+    for i, w in enumerate(waves):
+        np.save(os.path.join(wave_dir, f"clip{i}.npy"), w)
+    bundle = os.path.join(workdir, "visual.npz")
+    argv = ["--engine", "av", "--ckpt_path", bundle, "--audio_ckpt_path", audio_bundle,
+            "--input", clip_dir, "--audio_input", wave_dir, "--batch_size", str(BATCH_SIZE),
+            "--av_alpha", str(AV_ALPHA)]
+    calls = -(-len(clips) // BATCH_SIZE)
+    fused = run_cli(torch, workdir, argv, "AV CLI", [], per_call(2 * calls, k1=8), len(clips))
+    visual = VisualScorer.from_bundle(bundle, device="cuda", buckets=(25, 50, 75))
+    audio = AudioScorer.from_bundle(audio_bundle, device="cuda",
+                                    sample_buckets=(16000, 48000, 160000))
+    alone = []
+    for i in range(0, len(clips), BATCH_SIZE):
+        p_v = visual.score(*_pad_stack(clips[i : i + BATCH_SIZE]))
+        p_a = audio.score(_pad_stack(waves[i : i + BATCH_SIZE])[0])
+        alone.append(AV_ALPHA * p_v + (1 - AV_ALPHA) * p_a)
+    d = np.abs(fused - np.concatenate(alone)).max()
+    say(f"AV CLI vs {AV_ALPHA} p_visual + {1 - AV_ALPHA:.1f} p_audio of the engines alone: "
+        f"max|d| {d:.3e} (<= 1e-6); fused {np.round(fused, 4).tolist()}")
+    if d > 1e-6:
+        raise AssertionError("the AV CLI's fused scores differ from the engines' fusion")
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -864,10 +1246,13 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def phase_times(torch, smi: str, workdir: str):
+def time_middle(torch, smi: str, N: int, H: int, dw_shape, where: str) -> dict:
+    """K1 (both tap orders), K2 and the int8 depthwise at a path's shapes:
+    the middle trunk ``(N, H, H, 728)``, the depthwise's largest site
+    ``dw_shape = (N, H, C)``; each against its plain version and PyTorch's
+    own calls, in turns, and K1's and K2's halves per launch."""
     import torch.nn.functional as F
 
-    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
     from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
         middle_block,
@@ -881,7 +1266,7 @@ def phase_times(torch, smi: str, workdir: str):
     from multimodal_deepfake_detection_tpu_torch.ops.quant import quantize
 
     times = {}
-    N, H, C = 256, 16, 728  # the middle trunk of 256 frames at 256^2
+    C = 728
     M = N * H * H
     x, dw, pw, b = k1_operands(torch, N, H, C, "bfloat16", 736, seed=99)
     pw_t = [pw[r, :, :C].contiguous().t() for r in range(3)]
@@ -892,9 +1277,10 @@ def phase_times(torch, smi: str, workdir: str):
     }, 10)
     ops = 3 * 2 * M * C * C
     times["middle_block"] = (ms, bound_ms(2 * x.numel() * 2 + pw.numel() * 2, ops, PEAK_BF16))
-    say(f"time K1 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
+    say(f"time K1 ({N},{H},{H},{C}) bf16{where}: kernel {ms['kernel']:.4f} ms "
         f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
-        f"cuDNN + cuBLAS {ms['library']:.4f} ms; runs {runs} [{smi}]")
+        f"cuDNN + cuBLAS {ms['library']:.4f} ms, bound {times['middle_block'][1][0]:.4f} ms "
+        f"({times['middle_block'][1][1]}); runs {runs} [{smi}]")
     k1_halves(torch, x, dw, pw, b, smi)
     # the bf16-tap K1 per middle block, beside the fp32-tap K1 in the same turns
     ms, runs = in_turns(torch, {
@@ -904,9 +1290,10 @@ def phase_times(torch, smi: str, workdir: str):
         "library": lambda: library_block(torch, x, dw, pw_t, b),
     }, 10)
     times["middle_block_bf16taps"] = (ms, times["middle_block"][1])
-    say(f"time K1 bf16 taps ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms (fp32 taps "
-        f"{ms['fp32 taps']:.4f} ms), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS "
+    say(f"time K1 bf16 taps ({N},{H},{H},{C}) bf16{where}: kernel {ms['kernel']:.4f} ms (fp32 "
+        f"taps {ms['fp32 taps']:.4f} ms), plain {ms['plain']:.4f} ms, cuDNN + cuBLAS "
         f"{ms['library']:.4f} ms; runs {runs} [{smi}]")
+    del x, dw, pw, b, pw_t
 
     ops_k2 = k2_operands(torch, N, H, C, "bfloat16", seed=98)
     x2, dw2, pw_q, s_w, s_in, s_dq, b2 = ops_k2
@@ -918,12 +1305,14 @@ def phase_times(torch, smi: str, workdir: str):
         "library": lambda: library_block(torch, x2, taps, pw_t, b2, int8_sc=sc),
     }, 10)
     times["middle_block_w8"] = (ms, bound_ms(2 * x2.numel() * 2 + 3 * C * C, ops, PEAK_INT8))
-    say(f"time K2 ({N},{H},{H},{C}) bf16: kernel {ms['kernel']:.4f} ms "
+    say(f"time K2 ({N},{H},{H},{C}) bf16{where}: kernel {ms['kernel']:.4f} ms "
         f"({ops / ms['kernel'] / 1e9:.1f} TOP/s on the pointwise), plain {ms['plain']:.4f} ms, "
-        f"cuDNN + torch._int_mm {ms['library']:.4f} ms; runs {runs} [{smi}]")
+        f"cuDNN + torch._int_mm {ms['library']:.4f} ms, bound {times['middle_block_w8'][1][0]:.4f} "
+        f"ms ({times['middle_block_w8'][1][1]}); runs {runs} [{smi}]")
     k2_halves(torch, ops_k2, smi)
+    del ops_k2, x2, pw_t
 
-    Nd, Hd, Cd = 256, 125, 128  # block 1's second depthwise, the largest site
+    Nd, Hd, Cd = dw_shape
     xd, w_q, s_ind, scd = dw_operands(torch, Nd, Hd, Cd, "bfloat16", seed=97)
     w_f = w_q.float()
 
@@ -939,9 +1328,19 @@ def phase_times(torch, smi: str, workdir: str):
     }, 10)
     nbytes = 2 * xd.numel() * 2 + w_q.numel() + 2 * 4 * Cd
     times["dw_w8a8"] = (ms, bound_ms(nbytes, 2 * 9 * xd.numel(), PEAK_INT8))
-    say(f"time dw_w8a8 ({Nd},{Hd},{Hd},{Cd}) bf16: kernel {ms['kernel']:.4f} ms "
+    say(f"time dw_w8a8 ({Nd},{Hd},{Hd},{Cd}) bf16{where}: kernel {ms['kernel']:.4f} ms "
         f"({nbytes / ms['kernel'] / 1e6:.1f} GB/s), plain {ms['plain']:.4f} ms, quantize + "
-        f"fp32 cuDNN depthwise {ms['library']:.4f} ms; runs {runs} [{smi}]")
+        f"fp32 cuDNN depthwise {ms['library']:.4f} ms, bound {times['dw_w8a8'][1][0]:.4f} ms "
+        f"({times['dw_w8a8'][1][1]}); runs {runs} [{smi}]")
+    return times
+
+
+def phase_times(torch, smi: str, workdir: str):
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    # the middle trunk of 256 frames at 256^2; block 1's second depthwise,
+    # the int8 depthwise's largest site
+    times = time_middle(torch, smi, 256, 16, (256, 125, 128), "")
 
     bundle = os.path.join(workdir, "visual.npz")
     fused = VisualScorer.from_bundle(bundle, device="cuda", fuse_entry=True)
@@ -980,6 +1379,53 @@ def phase_times(torch, smi: str, workdir: str):
     return times
 
 
+def phase_audio_times(torch, smi: str, workdir: str) -> dict:
+    """The audio path on the card: each kernel at its audio shape (as
+    ``phase_times``), the MFCC frontend alone, ``AudioScorer.score`` of 64
+    one-second clips in turns (clips/s), and a profile of one scored batch."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer, mfcc_images
+    from multimodal_deepfake_detection_tpu_torch.ops.mfcc import mfcc
+
+    times = time_middle(torch, smi, AUDIO_N, 4, AUDIO_DW, " (audio)")
+    bundle = audio_bundle(torch, workdir)
+    kw = dict(device="cuda", sample_buckets=(16000, 48000, 160000))
+    of = f"the audio batch ({AUDIO_N} images)"
+    fused = AudioScorer.from_bundle(bundle, fuse_entry=True, **kw)
+    times["entry_block"] = time_k3(torch, fused, smi, AUDIO_K3_BLOCKS, of)
+    routes = AudioScorer.from_bundle(bundle, middle_taps="bf16", entry_pair=True, fuse_exit=True,
+                                     **kw)
+    times["entry_pair"] = time_k4(torch, routes, smi, AUDIO_K3_BLOCKS, of)
+    times["sepconv_unit"] = time_k5(torch, routes, smi, AUDIO_K5_CONVS, of)
+    torch.cuda.empty_cache()
+
+    B = AUDIO_N // 101
+    waves = np.random.default_rng(43).normal(0, 0.1, (B, SR)).astype(np.float32)
+    w = torch.from_numpy(waves).cuda()
+    ms, runs = in_turns(torch, {"frontend": lambda: mfcc_images(mfcc(w))}, 10)
+    say(f"time MFCC frontend ({B},{SR}) -> ({AUDIO_N},64,64,3) fp32, waveforms on the card: "
+        f"{ms['frontend']:.4f} ms; runs {runs} [{smi}]")
+    scorers = {
+        "plain bf16": AudioScorer.from_bundle(bundle, use_kernels=False, **kw),
+        "K1": AudioScorer.from_bundle(bundle, **kw),
+        "routes (K1 bf16 taps+K4+K5)": routes,
+        "w8a8-pallas": AudioScorer.from_bundle(bundle, quantize="w8a8-pallas", **kw),
+    }
+    for sc_ in scorers.values():
+        sc_.score(waves)  # warm-up; calibrates the w8a8 scorer
+    call_ms = {name: [] for name in scorers}
+    for name in list(scorers) + list(scorers)[::-1]:  # in turns
+        t0 = time.perf_counter()
+        for _ in range(3):
+            scorers[name].score(waves)  # returns host scores: synchronised
+        call_ms[name].append((time.perf_counter() - t0) / 3 * 1e3)
+    for name, runs in call_ms.items():
+        ms = float(np.mean(runs))
+        say(f"time audio B={B} one-second clips ({AUDIO_N} images of 64^2) bf16 {name}: "
+            f"{ms:.2f} ms/call, {B / ms * 1e3:.1f} clips/s; runs {runs} [{smi}]")
+    profile_calls(torch, {f"audio {k}": scorers[k] for k in ("K1", "w8a8-pallas")}, waves, smi)
+    return times
+
+
 def half_of(key: str) -> str:
     """The half of a two-launch kernel that a device kernel's name belongs
     to: the depthwise, or ``persistent_kernel<E, T, RELU_OUT, RESID>``
@@ -992,20 +1438,34 @@ def half_of(key: str) -> str:
     return "PyTorch op"
 
 
-def device_halves(torch, label: str, fn, expected: dict) -> dict:
+def device_halves(torch, label: str, fn, expected: dict, torch_ops: int = 0) -> dict:
     """``{half: (device us per launch, launches per call)}`` of ``fn()`` by
-    ``torch.profiler``; fails unless the kernel's launches per half are
-    ``expected`` (the wrapper's own PyTorch ops are shown, not held)."""
-    sums = {}
-    for key, (us, n) in device_kernels(torch, fn).items():
-        half = half_of(key)
-        us0, n0 = sums.get(half, (0.0, 0))
-        sums[half] = (us0 + us, n0 + n)
-    halves = {half: (us / n, round(n / PROFILED_CALLS)) for half, (us, n) in sums.items()}
-    counts = {half: n for half, (_, n) in halves.items()}
-    say(f"device launches of one {label}: {counts}")
-    if {k: n for k, n in counts.items() if k != "PyTorch op"} != expected:
-        raise AssertionError(f"one {label} launched {counts}: {expected} expected")
+    ``torch.profiler``. Fails unless one call launches the kernels of
+    ``expected`` (per half) and ``torch_ops`` of the wrapper's own PyTorch
+    ops, counted in a captured CUDA graph (:func:`graph_kernels`), and, in a
+    window where the profiler saw every launch, unless its halves split as
+    ``expected``; the profiler drops records, so a split it saw short is
+    printed, not held."""
+    launches = graph_kernels(torch, fn)
+    want = sum(expected.values()) + torch_ops
+    for _ in range(3):
+        sums = {}
+        for key, (us, n) in device_kernels(torch, fn).items():
+            half = half_of(key)
+            us0, n0 = sums.get(half, (0.0, 0))
+            sums[half] = (us0 + us, n0 + n)
+        halves = {half: (us / n, round(n / PROFILED_CALLS)) for half, (us, n) in sums.items()}
+        counts = {half: n for half, (_, n) in halves.items()}
+        if sum(counts.values()) == launches:
+            break
+    seen_all = sum(counts.values()) == launches
+    say(f"device launches of one {label}: {launches} in a captured graph ({want} expected); "
+        f"profiled per half {counts}" + ("" if seen_all else
+                                         " (the profiler dropped records: split not held)"))
+    if launches != want or (seen_all and {k: n for k, n in counts.items()
+                                          if k != "PyTorch op"} != expected):
+        raise AssertionError(f"one {label} launched {launches} kernels, {counts} by half: "
+                             f"{expected} and {torch_ops} PyTorch ops expected")
     return halves
 
 
@@ -1068,7 +1528,8 @@ def k2_halves(torch, ops_k2, smi: str) -> None:
     x, dw, pw_q, s_w, s_in, s_dq, b = ops_k2
     N, H, W, C = x.shape
     M, ldk = N * H * W, pw_q.shape[-1]
-    halves = device_halves(torch, "K2 block", lambda: middle_block_w8(*ops_k2), BLOCK_LAUNCHES)
+    halves = device_halves(torch, "K2 block", lambda: middle_block_w8(*ops_k2), BLOCK_LAUNCHES,
+                           torch_ops=2)
     taps, _ = _scaled(dw, s_w, s_in, s_dq)
     a = torch.relu(x).float().permute(0, 3, 1, 2)
     taps = taps[0].t().reshape(C, 1, 3, 3)
@@ -1093,10 +1554,11 @@ def k2_halves(torch, ops_k2, smi: str) -> None:
         f"{lib['torch._int_mm'] * 1e3:.2f}; two-launch floor {floor:.4f} ms per block [{smi}]")
 
 
-def time_k3(torch, scorer, smi: str):
+def time_k3(torch, scorer, smi: str, shapes=K3_BLOCKS, of: str = "256 frames"):
     """K3 per stride-2 block of the scorer's bf16 backbone, on random input
-    of 256 frames at 256^2: the kernel, its plain version, and the library
-    yardstick, the same folded block through cuDNN depthwise, cuBLAS 1x1,
+    at ``shapes`` (by default 256 frames at 256^2): the kernel, its plain
+    version, and the library yardstick, the same folded block through cuDNN
+    depthwise, cuBLAS 1x1,
     ``max_pool2d`` and the strided skip conv (``FoldedBlock.forward(
     use_kernels=False)``, which the fused path never calls). Returns the
     times and the bound, each summed over the four blocks."""
@@ -1105,7 +1567,7 @@ def time_k3(torch, scorer, smi: str):
     blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
     total = dict.fromkeys(("kernel", "plain", "library"), 0.0)
     bound = {"bytes": 0.0, "operations": 0.0}
-    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, K3_BLOCKS)):
+    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, shapes)):
         assert block.start_with_relu == lead and block.k3_pw0.shape[0] == Cmid
         gx = torch.Generator("cuda").manual_seed(500 + k)
         x = torch.randn((N, H, W, Cin), generator=gx, device="cuda").to(torch.bfloat16)
@@ -1128,16 +1590,16 @@ def time_k3(torch, scorer, smi: str):
             f"bound {b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
         del x
     by = max(bound, key=bound.get)
-    say(f"time K3, 4 blocks of 256 frames: kernel {total['kernel']:.4f} ms, plain "
+    say(f"time K3, 4 blocks of {of}: kernel {total['kernel']:.4f} ms, plain "
         f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
         f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
     return total, (sum(bound.values()), by)
 
 
-def time_k4(torch, scorer, smi: str):
-    """K4 per stride-2 pair of the scorer's bf16 backbone, on random input of
-    256 frames at 256^2: the kernel with the route's switches (those of
-    ``entry_pair_pallas``) and with the stream kernels' (dy-major with an fp32
+def time_k4(torch, scorer, smi: str, shapes=K3_BLOCKS, of: str = "256 frames"):
+    """K4 per stride-2 pair of the scorer's bf16 backbone, on random input at
+    ``shapes`` (by default 256 frames at 256^2): the kernel with the route's
+    switches (those of ``entry_pair_pallas``) and with the stream kernels' (dy-major with an fp32
     mid; dy-major), the first design's four launches (two K5 units: the
     tiled depthwise into device memory, then the GEMM, dy-major), its plain
     version, and the library yardstick, the same folded pair through cuDNN
@@ -1152,7 +1614,7 @@ def time_k4(torch, scorer, smi: str):
     blocks = [b for b in scorer.folded_backbone.blocks if b.is_entry]
     total = dict.fromkeys(("kernel", "stream", "stream2", "units", "plain", "library"), 0.0)
     bound = {"bytes": 0.0, "operations": 0.0}
-    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, K3_BLOCKS)):
+    for k, (block, (N, H, W, Cin, Cmid, Cout, lead, _)) in enumerate(zip(blocks, shapes)):
         assert block.start_with_relu == lead and block.k3_pw0.shape[0] == Cmid
         gx = torch.Generator("cuda").manual_seed(800 + k)
         x = torch.randn((N, H, W, Cin), generator=gx, device="cuda").to(torch.bfloat16)
@@ -1185,7 +1647,7 @@ def time_k4(torch, scorer, smi: str):
             f"{ms['library']:.4f} ms, bound {b_ms:.4f} ms ({by}); runs {runs} [{smi}]")
         del x
     by = max(bound, key=bound.get)
-    say(f"time K4, 4 pairs of 256 frames: kernel {total['kernel']:.4f} ms (stream switches "
+    say(f"time K4, 4 pairs of {of}: kernel {total['kernel']:.4f} ms (stream switches "
         f"{total['stream']:.4f} ms, stream2 without dx_roll {total['stream2']:.4f} ms), "
         f"four-launch pair {total['units']:.4f} ms, plain "
         f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
@@ -1193,9 +1655,10 @@ def time_k4(torch, scorer, smi: str):
     return total, (sum(bound.values()), by)
 
 
-def time_k5(torch, scorer, smi: str):
+def time_k5(torch, scorer, smi: str, shapes=K5_CONVS, of: str = "256 frames"):
     """K5 per exit conv (conv3, conv4) of the scorer's bf16 backbone with the
-    route's switches, on random input of 256 frames at 8^2: the kernel, its
+    route's switches, on random input at ``shapes`` (by default 256 frames at
+    8^2): the kernel, its
     plain version, and the library yardstick, the folded unit through cuDNN
     depthwise and cuBLAS 1x1 and a ReLU. Returns the times and the bound,
     each summed over the two convs."""
@@ -1208,7 +1671,7 @@ def time_k5(torch, scorer, smi: str):
     total = dict.fromkeys(("kernel", "plain", "library"), 0.0)
     bound = {"bytes": 0.0, "operations": 0.0}
     for k, (conv, (N, H, Cin, Cout, lead, trail, _)) in enumerate(zip((fb.conv3, fb.conv4),
-                                                                       K5_CONVS)):
+                                                                       shapes)):
         assert conv.k5_pw.shape[0] == Cout and conv.k5_dw.shape[1] == Cin
         gx = torch.Generator("cuda").manual_seed(900 + k)
         x = torch.randn((N, H, H, Cin), generator=gx, device="cuda").to(torch.bfloat16)
@@ -1233,7 +1696,7 @@ def time_k5(torch, scorer, smi: str):
             f"{b_ms:.4f} ms ({by}); device us per launch: {per_launch(halves)}; runs {runs} "
             f"[{smi}]")
     by = max(bound, key=bound.get)
-    say(f"time K5, conv3 + conv4 of 256 frames: kernel {total['kernel']:.4f} ms, plain "
+    say(f"time K5, conv3 + conv4 of {of}: kernel {total['kernel']:.4f} ms, plain "
         f"{total['plain']:.4f} ms, cuDNN + cuBLAS {total['library']:.4f} ms, bound "
         f"{sum(bound.values()):.4f} ms (mostly {by}) [{smi}]")
     return total, (sum(bound.values()), by)
@@ -1294,9 +1757,15 @@ def main() -> int:
     phase_build()
     with NoTF32(torch):
         max_err = phase_kernels(torch)
+        audio_err = phase_audio_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         launches = phase_slice(torch, workdir)
+        # the times before the audio phase: in two of three runs of the other
+        # order, torch.profiler on the card lost one of K1's three depthwise
+        # launches per call in every window after the audio phase
         times = phase_times(torch, smi, workdir)
+        audio_times = phase_audio_times(torch, smi, workdir)
+        audio_launches = phase_audio(torch, workdir, smi)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1309,6 +1778,15 @@ def main() -> int:
         "bound_ms": times[name][1][0],
         "bound_by": times[name][1][1],
         "library_ms": times[name][0]["library"],
+        "audio": {  # the same readings on the audio path, at its shapes
+            "launches": audio_launches[name],
+            "max_abs_err": audio_err[name],
+            "ms": audio_times[name][0]["kernel"],
+            "plain_ms": audio_times[name][0]["plain"],
+            "bound_ms": audio_times[name][1][0],
+            "bound_by": audio_times[name][1][1],
+            "library_ms": audio_times[name][0]["library"],
+        },
     } for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,35 @@
-"""Batch scoring CLI over the port's visual engine.
+"""Batch scoring CLI over the port's engines.
 
-Counterpart of ``multimodal_deepfake_detection_tpu/cli/serve.py --engine
-visual``: scores every ``.npy`` uint8 frame stack ``(T, H, W, 3)`` under
-``--input`` and writes one JSONL record ``{"path", "score", "fake"}`` per clip.
+Counterpart of ``multimodal_deepfake_detection_tpu/cli/serve.py`` for the
+visual, audio and AV engines: scores every input under ``--input`` and writes
+one JSONL record ``{"path", "score", "fake"}`` per clip.
 
     python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
         --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
+    python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
+        --engine audio --ckpt_path audio.npz --input waves/
+    python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
+        --engine av --ckpt_path visual.npz --audio_ckpt_path audio.npz \\
+        --input clips/ --audio_input waves/
 
-Flags are the JAX Config's visual fields, with the same names, defaults and
-``--field value`` syntax, plus ``--device`` and the fp path's kernel routes.
-``--quantize w8a8|w8a8-hybrid|w8a8-pallas`` serves the int8 backbone,
-calibrated on the first batch. On the fp path: ``--fuse_entry true`` runs
-the stride-2 blocks through the K3 kernel, ``--entry_pair true`` their
-separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap order;
-``--fuse_exit true`` runs the exit sepconvs through K5.
-``--compute_dtype float32`` scores in IEEE fp32 on the card (cuDNN's TF32 is
-off for the duration of each call).
-Video decoding, the other engines, AOT artifacts and the device mesh are not
-ported yet.
+Inputs: ``visual`` and ``av`` read ``.npy`` uint8 frame stacks ``(T, H, W, 3)``;
+``audio`` reads ``.npy`` float waveforms and ``.wav`` files (through
+``scipy.io.wavfile``); ``av`` pairs each clip with the waveform of the same
+stem under ``--audio_input``, ``.wav`` before ``.npy``. A batch of waveforms
+is zero-padded to its longest and scored without per-row sample lengths, as
+the JAX CLI does, so a shorter clip's padding is scored as silence.
+
+Flags are the JAX Config's fields of these engines, with the same names,
+defaults and ``--field value`` syntax, plus ``--device`` and the fp path's
+kernel routes. ``--quantize w8a8|w8a8-hybrid|w8a8-pallas`` serves the int8
+backbone, calibrated on the first batch. On the fp path: ``--fuse_entry
+true`` runs the stride-2 blocks through the K3 kernel, ``--entry_pair true``
+their separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap
+order; ``--fuse_exit true`` runs the exit sepconvs through K5; every option
+goes to both engines of ``av``. ``--compute_dtype float32`` scores in IEEE
+fp32 on the card (TF32 is off for the duration of each call). Video
+decoding, the AU engines, AOT artifacts and the device mesh are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -33,14 +45,19 @@ import numpy as np
 
 @dataclasses.dataclass
 class Config:
-    engine: str = "visual"
+    engine: str = "visual"  # visual | audio | av
     ckpt_path: str = "Checkpoints/XceptionLSTMV_ArcFace_Best.npz"
     input: str = "clips"
+    audio_input: Optional[str] = None  # av: .wav/.npy waveform root, paired by stem
+    audio_ckpt_path: str = ""  # av: the audio bundle (ckpt_path is the visual one)
+    av_alpha: float = 0.5  # av: fused = alpha * p_visual + (1 - alpha) * p_audio
     output: Optional[str] = None  # JSONL path; default stdout
     batch_size: int = 8
     max_frames: int = 50
-    hidden_dim: int = 128
+    hidden_dim: int = 128  # the visual head's width (audio's is audio_hidden)
+    audio_hidden: int = 512
     buckets: Tuple[int, ...] = (25, 50, 75)
+    sample_buckets: Tuple[int, ...] = (16000, 48000, 160000)
     compute_dtype: str = "bfloat16"
     mask_padding: bool = True
     threshold: float = 0.5  # "fake" = score > threshold in the JSONL
@@ -85,10 +102,12 @@ def parse_config(argv=None) -> Config:
     return Config(**overrides)
 
 
-def _list_inputs(folder: str) -> List[str]:
+def _list_inputs(folder: str, exts: Tuple[str, ...]) -> List[str]:
     out = []
     for dirpath, _dirs, files in sorted(os.walk(folder)):
-        out.extend(os.path.join(dirpath, f) for f in sorted(files) if f.lower().endswith(".npy"))
+        for f in sorted(files):
+            if f.lower().endswith(exts) and not f.endswith("_weights.npy"):
+                out.append(os.path.join(dirpath, f))
     return out
 
 
@@ -98,6 +117,21 @@ def _load_visual_item(path: str, cfg: Config) -> np.ndarray:
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8) if arr.max() <= 1.5 else arr.astype(np.uint8)
     return arr
+
+
+def _load_waveform(path: str) -> np.ndarray:
+    """``.wav`` (integer PCM scaled to [-1, 1)) or ``.npy`` -> ``(samples,)`` fp32."""
+    if path.endswith(".wav"):
+        from scipy.io import wavfile
+
+        _sr, wav = wavfile.read(path)
+        wav = wav.astype(np.float32)
+        if wav.ndim > 1:
+            wav = wav.mean(axis=1)
+        if np.abs(wav).max() > 1.5:
+            wav = wav / 32768.0
+        return wav
+    return np.load(path).astype(np.float32).ravel()
 
 
 def _pad_stack(items: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
@@ -113,25 +147,61 @@ def _pad_stack(items: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
 
 def build_engine(cfg: Config):
     from ..core.precision import parse_dtype
-    from ..models.serve import VisualScorer
+    from ..models.serve import AudioScorer, AVScorer, VisualScorer
 
-    if cfg.engine != "visual":
-        raise ValueError(f"engine {cfg.engine!r} is not ported; only 'visual' is")
-    return VisualScorer.from_bundle(
-        cfg.ckpt_path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None,
-        mask_padding=cfg.mask_padding, compute_dtype=parse_dtype(cfg.compute_dtype),
+    common = dict(
+        compute_dtype=parse_dtype(cfg.compute_dtype), mask_padding=cfg.mask_padding,
         quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
         middle_taps=cfg.middle_taps, fuse_exit=cfg.fuse_exit, device=cfg.device,
     )
+    visual = lambda path: VisualScorer.from_bundle(
+        path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None, **common)
+    audio = lambda path: AudioScorer.from_bundle(
+        path, hidden_dim=cfg.audio_hidden, sample_buckets=cfg.sample_buckets or None, **common)
+    if cfg.engine == "visual":
+        return visual(cfg.ckpt_path)
+    if cfg.engine == "audio":
+        return audio(cfg.ckpt_path)
+    if cfg.engine == "av":
+        if not cfg.audio_ckpt_path:
+            raise ValueError("engine av needs --audio_ckpt_path (ckpt_path = visual bundle)")
+        return AVScorer(visual(cfg.ckpt_path), audio(cfg.audio_ckpt_path), alpha=cfg.av_alpha)
+    raise ValueError(f"engine {cfg.engine!r} is not ported; 'visual', 'audio' and 'av' are")
+
+
+def _audio_path(stem: str, folder: str) -> str:
+    """The waveform paired with a clip: ``<stem>.wav``, else ``<stem>.npy``."""
+    for ext in (".wav", ".npy"):
+        path = os.path.join(folder, stem + ext)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no audio for {stem} under {folder}")
+
+
+def _score_chunk(engine, cfg: Config, chunk: List[str]) -> np.ndarray:
+    if cfg.engine == "visual":
+        return engine.score(*_pad_stack([_load_visual_item(p, cfg) for p in chunk]))
+    if cfg.engine == "audio":  # no sample lengths: the padding is scored, as in JAX
+        batch, _lengths = _pad_stack([_load_waveform(p) for p in chunk])
+        return engine.score(batch)
+    waves = [_load_waveform(_audio_path(os.path.splitext(os.path.basename(p))[0],
+                                        cfg.audio_input)) for p in chunk]
+    batch, lengths = _pad_stack([_load_visual_item(p, cfg) for p in chunk])
+    wbatch, _wl = _pad_stack(waves)
+    return engine.score(batch, wbatch, lengths)
 
 
 def main(argv=None, *, log=print) -> int:
-    """Score every clip under ``--input``; returns the number of records written."""
+    """Score every input under ``--input``; returns the number of records written."""
     cfg = parse_config(argv)
     engine = build_engine(cfg)
-    paths = _list_inputs(cfg.input)
+    if cfg.engine == "av" and not cfg.audio_input:
+        # up front: in the loop a missing flag would surface only on the
+        # first chunk, or never on an empty input directory
+        raise ValueError("--audio_input (wav/npy root) required for av")
+    paths = _list_inputs(cfg.input, (".npy", ".wav") if cfg.engine == "audio" else (".npy",))
     if not paths:
-        raise FileNotFoundError(f"no .npy inputs under {cfg.input}")
+        raise FileNotFoundError(f"no scoreable inputs under {cfg.input}")
     log(f"[serve] {cfg.engine}: {len(paths)} inputs, batch {cfg.batch_size}, {cfg.device}")
 
     sink = open(cfg.output, "w") if cfg.output else None
@@ -139,9 +209,8 @@ def main(argv=None, *, log=print) -> int:
     try:
         for i in range(0, len(paths), cfg.batch_size):
             chunk = paths[i : i + cfg.batch_size]
-            batch, lengths = _pad_stack([_load_visual_item(p, cfg) for p in chunk])
-            scores = engine.score(batch, lengths)
-            for p, s in zip(chunk, scores.tolist()):
+            scores = _score_chunk(engine, cfg, chunk)
+            for p, s in zip(chunk, np.asarray(scores).tolist()):
                 line = json.dumps({"path": p, "score": round(float(s), 6),
                                    "fake": bool(s > cfg.threshold)})
                 if sink:

@@ -5,6 +5,8 @@ ArcFace math; the bf16 exponent range equals fp32's, so no loss scaling.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _DTYPES = {
@@ -24,3 +26,18 @@ def parse_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unknown dtype {name!r}; expected one of {sorted(_DTYPES)}") from None
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """cuDNN's and cuBLAS's TF32 switched off for the ``with`` block, so fp32
+    convolutions and matmuls on the card are IEEE fp32 (torch's default lets
+    cuDNN round fp32 inputs to TF32's 10-bit mantissa); the process's
+    settings come back when the block ends or raises."""
+    b = torch.backends
+    before = b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = before

@@ -1,9 +1,11 @@
-"""XceptionLSTM skeleton and the ArcFace head.
+"""XceptionLSTM skeleton, its MLP head and the ArcFace head.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/models/heads.py``. The
 module tree has the JAX param tree's shapes (``xception_lstm_init``:
 backbone, lstm, 4 fc_layers, fc_out) so a JAX bundle merges into it strictly;
-visual serving uses the backbone, the LSTM and ArcFace.
+visual serving uses the backbone, the LSTM and ArcFace, audio serving the
+backbone, the LSTM and the MLP head (:func:`xception_lstm_head_apply`, eval
+only: the training dropout comes with the training port).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..core.precision import at_least_f32
 from ..ops.conv import Linear
-from ..ops.lstm import LSTM
+from ..ops.lstm import LSTM, lstm_apply, select_last_step
 from .xception import Xception
 
 MLP_WIDTH = 1024
@@ -38,6 +40,35 @@ class XceptionLSTM(nn.Module):
             Linear(MLP_WIDTH, MLP_WIDTH, g),
         ])
         self.fc_out = Linear(MLP_WIDTH, 1, g)
+
+
+def xception_lstm_embed(head, features: torch.Tensor, *, lengths: Optional[torch.Tensor] = None,
+                        mask_padding: bool = True,
+                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The LSTM over ``features (B, T, 2048)``, then each sequence's last step
+    (``select_last_step``) -> ``(B, hidden)``. ``head``: anything with the
+    :class:`XceptionLSTM` head's modules (``lstm``, ``fc_layers``, ``fc_out``)."""
+    outputs, _ = lstm_apply(head.lstm, features, compute_dtype=compute_dtype)
+    return select_last_step(outputs, lengths, mask_padding=mask_padding)
+
+
+def _dense(layer: Linear, x: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x @ w.T`` then ``+ b`` in the compute dtype: two roundings, as the
+    JAX ``linear`` (a dot, then the bias add)."""
+    dtype = compute_dtype or torch.promote_types(x.dtype, layer.w.dtype)
+    return x.to(dtype) @ layer.w.to(dtype).T + layer.b.to(dtype)
+
+
+def xception_lstm_head_apply(head, features: torch.Tensor, *,
+                             lengths: Optional[torch.Tensor] = None, mask_padding: bool = True,
+                             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LSTM -> last valid step -> 4 x (linear + ReLU) -> ``fc_out`` in the
+    compute dtype -> the fp32 sigmoid probability ``(B, 1)``."""
+    h = xception_lstm_embed(head, features, lengths=lengths, mask_padding=mask_padding,
+                            compute_dtype=compute_dtype)
+    for layer in head.fc_layers:
+        h = torch.relu(_dense(layer, h, compute_dtype))
+    return torch.sigmoid(_dense(head.fc_out, h, compute_dtype).float())
 
 
 class ArcFace(nn.Module):

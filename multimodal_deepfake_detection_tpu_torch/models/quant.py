@@ -27,12 +27,15 @@ versions on the CPU); ``use_kernels=False`` takes the plain versions on any
 device. The JAX walk's W >= 4 gate on its fused kernels works around a TPU
 fault and is not ported: K1 and K2 are exact at any trunk size.
 
-The walk's ``tap``/``shadow`` hooks, the affine refinement and the ResNet-18
-half are not ported yet.
+The walk's ``tap``/``shadow`` hooks report every conv site's output, and,
+with a shadow tree, that tree's node applied to the same input beside it;
+:func:`refine_quantized_xception` fits a per-channel affine correction of a
+w8a8 tree on them. The ResNet-18 half is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+import copy
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -182,33 +185,62 @@ def xception_quant_walk(
     fuse_middle: bool = False,
     use_kernels: bool = True,
     upto: Optional[str] = None,
+    tap: Optional[Callable] = None,
+    shadow: Optional[QuantizedXception] = None,
 ):
     """The shared structural forward on NHWC images (modes: module
     docstring). ``upto`` ("stem", "block<k>", "exit") returns that stage's
     output, as ``FoldedXception.forward`` does. With ``observe`` returns
-    ``(out, {site: fp32 (Ci,) amax})``."""
+    ``(out, {site: fp32 (Ci,) amax})``.
+
+    ``tap(site, y)`` is called with every conv site's output (before its
+    ReLU, after its bias; a depthwise under ``.../depthwise``); not with
+    ``fuse_middle``, whose fused blocks expose no site. With a ``shadow``
+    tree of the same structure, each site's shadow node is also applied to
+    the same input and ``tap(site, y, y_shadow)`` is called; the walk goes
+    on with its own output."""
+    if tap is not None and fuse_middle:
+        raise ValueError("tap= needs the unfused walk (fuse_middle=False): the fused blocks "
+                         "expose no per-site outputs")
+    if shadow is not None and tap is None:
+        raise ValueError("shadow= needs a tap= to report the paired outputs to")
     obs = {} if observe else None
 
     def amax(site, h):
         if obs is not None:
             obs[site] = h.float().abs().amax(dim=(0, 1, 2))
 
-    def reg(site, node, h, stride, padding):
-        amax(site, h)
-        if quant and node.quantized:  # mixed trees carry fp nodes (skip_middle)
+    def apply_conv(node, h, stride, padding, q):
+        if q and node.quantized:  # mixed trees carry fp nodes (skip_middle)
             return conv2d_w8a8(h, node.w_q, node.s_w, node.s_in, node.b, node.s_dq,
                                stride=stride, padding=padding, out_dtype=compute_dtype)
         return conv2d(h, node.w, node.b, stride=stride, padding=padding,
                       compute_dtype=compute_dtype)
 
+    def apply_dw(node, h, q):
+        if q and node.quantized:
+            return depthwise_conv2d_w8a8(h, node.w_q, node.s_w, node.s_in, node.s_dq,
+                                         out_dtype=compute_dtype, use_kernels=use_kernels)
+        return conv2d(h, node.w, padding=1, groups=h.shape[-1], compute_dtype=compute_dtype)
+
+    def report(site, h, y, apply):
+        if tap is None:
+            return
+        if shadow is None:
+            tap(site, y)
+        else:  # the shadow node applies as stored: int8 where it is quantized
+            tap(site, y, apply(_resolve_site(shadow, site), h, True))
+
+    def reg(site, node, h, stride, padding):
+        amax(site, h)
+        y = apply_conv(node, h, stride, padding, quant)
+        report(site, h, y, lambda n, hh, q: apply_conv(n, hh, stride, padding, q))
+        return y
+
     def sep(site, s, h):
         amax(f"{site}/depthwise", h)
-        d = s.depthwise
-        if quant and d.quantized:
-            y = depthwise_conv2d_w8a8(h, d.w_q, d.s_w, d.s_in, d.s_dq, out_dtype=compute_dtype,
-                                      use_kernels=use_kernels)
-        else:
-            y = conv2d(h, d.w, padding=1, groups=h.shape[-1], compute_dtype=compute_dtype)
+        y = apply_dw(s.depthwise, h, quant)
+        report(f"{site}/depthwise", h, y, apply_dw)
         return reg(f"{site}/pointwise", s.pointwise, y, 1, 0)
 
     h = torch.relu(reg("conv1", tree.conv1, x, 2, 0))
@@ -352,3 +384,113 @@ def quantized_xception_apply(tree: QuantizedXception, x: torch.Tensor, *,
     """The w8a8 serving forward (the ``w8a8`` mode: no fused middle flow)."""
     return xception_quant_walk(tree, x, quant=True, compute_dtype=compute_dtype,
                                features_only=features_only, use_kernels=use_kernels)
+
+
+def _fit_affine(mom, node: ConvNode, *, shrink: float = 1.0) -> ConvNode:
+    """Per-channel least-squares fit ``f ~ gamma * q + beta`` -> the node with
+    ``s_w * gamma`` and ``gamma * b + beta``.
+
+    ``mom`` = ``(var_q, cov, qm, fm, qq, qf)``, fp32 per channel. A node
+    without a bias (a depthwise) gets a gain through the origin only: the
+    next pointwise's bias takes any shift. ``shrink`` in (0, 1] damps the
+    correction toward identity (a thin calibration batch)."""
+    var_q, cov, qm, fm, qq, qf = (m.float() for m in mom)
+    fields = node.fields()
+    if node.b is not None:
+        ok = var_q > 1e-10
+        gamma = torch.where(ok, cov / torch.where(ok, var_q, 1.0), 1.0)
+        gamma = 1.0 + shrink * (gamma.clamp(0.5, 2.0) - 1.0)
+        fields["b"] = gamma * node.b + shrink * (fm - gamma * qm)
+    else:
+        ok = qq > 1e-10
+        gamma = torch.where(ok, qf / torch.where(ok, qq, 1.0), 1.0)
+        gamma = 1.0 + shrink * (gamma.clamp(0.5, 2.0) - 1.0)
+    fields["s_w"] = node.s_w * gamma
+    return ConvNode(**fields)
+
+
+def _moments(q: torch.Tensor, f: torch.Tensor):
+    """Per-channel fp32 ``(var_q, cov, qm, fm, qq, qf)`` of a quantized conv
+    output ``q`` and its teacher ``f`` over every position, and the number
+    of positions. The centred moments are taken directly: ``E[q^2] - E[q]^2``
+    cancels in fp32 on channels of large mean and small variance."""
+    q, f = q.float(), f.float()
+    ax = tuple(range(q.dim() - 1))
+    qm, fm = q.mean(ax), f.mean(ax)
+    var_q = ((q - qm) ** 2).mean(ax)
+    cov = ((q - qm) * (f - fm)).mean(ax)
+    return (var_q, cov, qm, fm, (q * q).mean(ax), (q * f).mean(ax)), q[..., 0].numel()
+
+
+def _set_site(tree: nn.Module, site: str, node: ConvNode) -> None:
+    parent, _, name = site.rpartition("/")
+    setattr(_resolve_site(tree, parent) if parent else tree, name, node)
+
+
+@torch.inference_mode()
+def _refine_tree(qtree, fp_tree, calib_x: torch.Tensor, *, walk: Callable, sites: Sequence[str],
+                 output_sites: Sequence[str], passes: int, shrink_n0: float,
+                 compute_dtype: torch.dtype):
+    """The backbone-agnostic core of the affine refinement (the scheme:
+    :func:`refine_quantized_xception`). ``walk(tree, x, quant=,
+    compute_dtype=, tap=, shadow=)`` must take the tap and shadow hooks;
+    ``sites`` are the walk-order site keys. Returns a refined copy of
+    ``qtree``."""
+    qtree = copy.deepcopy(qtree)
+    qsites = [s for s in sites if _resolve_site(qtree, s).quantized]
+    qset = set(qsites)
+    for _ in range(passes):
+        mom = {}
+
+        def local(site, y_f, y_q):
+            if site in qset:
+                mom[site] = _moments(y_q, y_f)[0]
+
+        walk(fp_tree, calib_x, quant=False, compute_dtype=compute_dtype, tap=local, shadow=qtree)
+        for site in qsites:  # all at once: each fit is its own site's error
+            _set_site(qtree, site, _fit_affine(mom[site], _resolve_site(qtree, site)))
+    for site in output_sites:  # sequential: re-measured after each correction
+        if site not in qset:
+            continue
+        taps = {}
+        walk(fp_tree, calib_x, quant=False, compute_dtype=compute_dtype,
+             tap=lambda s, y: taps.__setitem__("f", y) if s == site else None)
+        walk(qtree, calib_x, quant=True, compute_dtype=compute_dtype,
+             tap=lambda s, y: taps.__setitem__("q", y) if s == site else None)
+        mom, n = _moments(taps["q"], taps["f"])
+        shrink = n / (n + shrink_n0)
+        _set_site(qtree, site, _fit_affine(mom, _resolve_site(qtree, site), shrink=shrink))
+    return qtree
+
+
+def refine_quantized_xception(
+    qtree: QuantizedXception, fp_tree: QuantizedXception, calib_x: torch.Tensor, *,
+    passes: int = 1, output_sites: Sequence[str] = ("conv3/pointwise", "conv4/pointwise"),
+    shrink_n0: float = 64.0, compute_dtype: torch.dtype = torch.float32,
+) -> QuantizedXception:
+    """Closed-form per-channel affine refinement of a w8a8 tree, folded into
+    its dequant epilogue (``s_w *= gamma``, ``b = gamma * b + beta``), so the
+    refined tree serves at the cost of the one it came from.
+
+    1. **Local fits at every quantized site**, ``passes`` times: the walk's
+       ``shadow`` applies each int8 node to the same fp input as its fp
+       teacher in ``fp_tree``, so each fit sees only that conv's own
+       quantization error, and all fits apply at once.
+    2. **The output touch-up** at ``output_sites``, one after another, each
+       re-measured on the refined tree's own forward: the exit pointwises
+       take the error accumulated through the network, damped by
+       ``N / (N + shrink_n0)`` for N positions per channel.
+
+    ``qtree`` and ``fp_tree`` (``QuantizedXception.from_folded`` of the fp32
+    fold) come from the same weights; ``calib_x`` is a serving-normalised
+    NHWC batch. Every walk is the plain unfused one, on any device, and
+    launches no kernel. Returns a new tree, its fused blocks packed anew."""
+    walk = lambda tree, x, **kw: xception_quant_walk(tree, x, features_only=True,
+                                                     use_kernels=False, **kw)
+    refined = _refine_tree(qtree, fp_tree, calib_x, walk=walk,
+                           sites=list(_sites(fp_tree, depthwise=True)), output_sites=output_sites,
+                           passes=passes, shrink_n0=shrink_n0, compute_dtype=compute_dtype)
+    refined.blocks = nn.ModuleList(  # K2's operands carry s_w and b: pack them again
+        QuantBlock(spec, list(blk.units), blk.skip)
+        for spec, blk in zip(XCEPTION_BLOCK_SPECS, refined.blocks))
+    return refined

@@ -1,31 +1,40 @@
-"""Visual serving engine: uint8 clips -> fake probabilities.
+"""Serving engines: uint8 clips or raw waveforms -> fake probabilities.
 
-Counterpart of ``multimodal_deepfake_detection_tpu/models/serve.py::
-VisualScorer``. One call of :meth:`VisualScorer.score`:
+Counterpart of ``multimodal_deepfake_detection_tpu/models/serve.py``'s
+``VisualScorer``, ``AudioScorer`` and ``AVScorer``. The two engines share
+the backbone (:class:`_XceptionScorer`): the BN-folded Xception in the
+compute dtype, the 8 middle-flow blocks through the K1 kernel when the
+tensors are on CUDA (with ``middle_taps="bf16"`` in bf16 tap order), with
+``fuse_entry`` the 4 stride-2 blocks through the K3 kernel or with
+``entry_pair`` their separable pairs through K4, and with ``fuse_exit`` the
+exit sepconvs through K5 (``models/fold.py``); or, with ``quantize``, the
+w8a8 tree (``models/quant.py``).
 
-1. uint8 ``(B, T, H, W, 3)`` -> fp32 / 255, optional bilinear resize;
-2. BN-folded Xception over the B*T frames, the 8 middle-flow blocks through
-   the K1 kernel when the tensors are on CUDA (with ``middle_taps="bf16"`` in
-   bf16 tap order), with ``fuse_entry`` the 4 stride-2 blocks through the K3
-   kernel or with ``entry_pair`` their separable pairs through K4, and with
-   ``fuse_exit`` the exit sepconvs through K5 (``models/fold.py``); or, with
-   ``quantize``, the w8a8 tree (``models/quant.py``);
-3. LSTM over T in the compute dtype, last valid step;
-4. ArcFace cosine logits (s=30) in fp32, softmax fake probability.
+- :meth:`VisualScorer.score`: uint8 ``(B, T, H, W, 3)`` -> fp32 / 255,
+  optional bilinear resize; the backbone over the B*T frames; the LSTM over
+  T in the compute dtype, last valid step; ArcFace cosine logits (s=30) in
+  fp32, softmax fake probability.
+- :meth:`AudioScorer.score`: waveforms ``(B, L)`` -> MFCC ``(B, T, 13)`` in
+  IEEE fp32 (``ops/mfcc.py``), each 10 ms column a 13 x 1 image tripled to 3
+  channels and resized bilinearly to 64^2; the backbone over the B*T images;
+  the LSTM, last valid step and MLP head in the compute dtype, sigmoid in
+  fp32.
+- :meth:`AVScorer.score`: ``alpha * p_visual + (1 - alpha) * p_audio``.
 
-Clips are padded (or cut) to a length bucket as the JAX engine does, so the
-scores match it; the JAX meshes and jit cache are not ported here.
+Clips are padded (or cut) to a length bucket as the JAX engines do, so the
+scores match them; the JAX meshes and jit cache are not ported here.
 
-The quantization modes are the JAX engine's: ``"w8a8"`` (every conv and
+The quantization modes are the JAX engines': ``"w8a8"`` (every conv and
 depthwise int8), ``"w8a8-hybrid"`` (int8 entry and exit, the fp middle flow
 through K1) and ``"w8a8-pallas"`` (int8 throughout, the middle flow through
-K2). The first :meth:`VisualScorer.score` calibrates on its batch unless
-:meth:`VisualScorer.calibrate` ran before.
+K2). The first ``score`` calibrates on its batch unless ``calibrate`` ran
+before; ``calibrate(refine_passes=n)`` adds the affine refinement
+(``models/quant.py::refine_quantized_xception``).
 
 ``compute_dtype=torch.float32`` means IEEE fp32 on the card: every forward
-of the scorer runs with cuDNN's TF32 switched off (torch's default lets
-cuDNN round fp32 convolution inputs to TF32's 10-bit mantissa), and the
-switch is restored when the call returns or raises.
+of the scorer runs with TF32 switched off in cuDNN and cuBLAS (torch's
+default lets cuDNN round fp32 convolution inputs to TF32's 10-bit mantissa),
+and the setting is restored when the call returns or raises.
 """
 from __future__ import annotations
 
@@ -35,10 +44,13 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.checkpoint import load_bundle, merge_params
+from ..core.precision import ieee_fp32
 from ..data.collate import bucket_length
 from ..ops.lstm import lstm_apply, select_last_step
+from ..ops.mfcc import mfcc
 from ..ops.resize import resize_bilinear
 from ..utils.jax_weights import (
     arcface_from_jax,
@@ -47,54 +59,153 @@ from ..utils.jax_weights import (
     xception_lstm_to_jax,
 )
 from .fold import check_routes, fold_xception_bn
-from .heads import ArcFace, XceptionLSTM, arcface_apply
+from .heads import ArcFace, XceptionLSTM, arcface_apply, xception_lstm_head_apply
 from .quant import (
     QuantizedXception,
     calibrate_amax,
     quantize_folded_xception,
+    refine_quantized_xception,
     xception_quant_walk,
 )
+from .xception import Xception
 
 QUANT_MODES = (None, "w8a8", "w8a8-hybrid", "w8a8-pallas")
+AUDIO_IMAGE = (64, 64)  # each MFCC column becomes one image of this size
 
 
 def _ieee_fp32(method):
-    """Runs a scorer's forward with cuDNN's TF32 off when it computes in
-    fp32, restoring the process's setting on return or raise; bf16 scoring
-    leaves the setting alone."""
+    """Runs a scorer's forward in IEEE fp32 (:func:`ieee_fp32`) when it
+    computes in fp32; bf16 scoring leaves the settings alone."""
     @functools.wraps(method)
     def run(self, *args, **kw):
         if self.compute_dtype != torch.float32:
             return method(self, *args, **kw)
-        before = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        with ieee_fp32():
             return method(self, *args, **kw)
-        finally:
-            torch.backends.cudnn.allow_tf32 = before
     return run
 
 
-def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
-    """Read a JAX ``train_visual`` bundle ``{model, arcface[, state]}``.
-
-    ``model`` and ``arcface`` merge strictly onto a freshly initialised tree
-    of the same shapes, so no initial value survives; ``state`` merges
-    leniently (missing BN statistics keep their init, mean 0 and var 1), as
-    the JAX loader does.
-    """
-    g = torch.Generator().manual_seed(0)
+def _merge_xception_lstm(bundle: dict, hidden_dim: int, g: torch.Generator) -> XceptionLSTM:
+    """``model`` merged strictly onto a freshly initialised XceptionLSTM tree
+    of the same shapes, so no initial value survives; ``state`` leniently
+    (missing BN statistics keep their init, mean 0 and var 1), as the JAX
+    loaders do."""
     params, state = xception_lstm_to_jax(XceptionLSTM(hidden_dim, generator=g))
-    arc = arcface_to_jax(ArcFace(hidden_dim, 2, generator=g))
-    bundle = load_bundle(path)
     params = merge_params(params, bundle["model"], strict=True)
-    arc = merge_params(arc, bundle["arcface"], strict=True)
     if "state" in bundle:
         state = merge_params(state, bundle["state"], strict=False)
-    return xception_lstm_from_jax(params, state), arcface_from_jax(arc)
+    return xception_lstm_from_jax(params, state)
 
 
-class VisualScorer:
+def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
+    """Read a JAX ``train_visual`` bundle ``{model, arcface[, state]}``;
+    ``arcface`` merges strictly too."""
+    g = torch.Generator().manual_seed(0)
+    bundle = load_bundle(path)
+    model = _merge_xception_lstm(bundle, hidden_dim, g)
+    arc = merge_params(arcface_to_jax(ArcFace(hidden_dim, 2, generator=g)), bundle["arcface"],
+                       strict=True)
+    return model, arcface_from_jax(arc)
+
+
+def load_audio_bundle(path: str, hidden_dim: int = 512) -> XceptionLSTM:
+    """Read a JAX ``train_audio`` bundle ``{model[, state]}``."""
+    return _merge_xception_lstm(load_bundle(path), hidden_dim, torch.Generator().manual_seed(0))
+
+
+def mfcc_images(feats: torch.Tensor) -> torch.Tensor:
+    """MFCC ``(B, T, n)`` -> ``(B*T, 64, 64, 3)``: each column an ``n x 1``
+    image, tripled to 3 channels and resized bilinearly. The images come
+    back NHWC-contiguous, as the visual engine's frames do: the resize
+    returns them channels-first in memory, and the convs on the plain
+    blocks would run in that layout (on the card, ATen's own depthwise and
+    max pool in NCHW instead of cuDNN's channels-last kernels)."""
+    B, T, n = feats.shape
+    imgs = feats.reshape(B * T, n, 1, 1).expand(B * T, n, 1, 3)
+    return resize_bilinear(imgs, AUDIO_IMAGE).contiguous()
+
+
+class _XceptionScorer:
+    """The backbone both engines serve: the fp fold in the compute dtype with
+    its kernel routes, or a quant mode's w8a8 tree, calibrated (and refined)
+    from the fp32 fold."""
+
+    def __init__(self, backbone: Xception, *, compute_dtype: torch.dtype,
+                 use_kernels: Optional[bool], quantize: Optional[str], fuse_entry: bool,
+                 entry_pair: bool, middle_taps: str, fuse_exit: bool, device):
+        """``use_kernels=None`` runs the middle flow through the K1 kernel
+        (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
+        its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
+        versions (the reference runs compare against this). ``quantize``:
+        one of :data:`QUANT_MODES`. When kernels run, the fp path's routes
+        (``models/fold.py``): ``fuse_entry`` runs the 4 stride-2 blocks
+        through the K3 kernel, ``entry_pair`` their separable pairs through
+        K4 (not both); ``middle_taps="bf16"`` runs K1 in bf16 tap order;
+        ``fuse_exit`` runs conv3 and conv4 through K5. The w8a8 walk has none
+        of these routes, so each raises together with ``quantize``."""
+        if quantize not in QUANT_MODES:
+            raise ValueError(
+                f"quantize must be None, 'w8a8', 'w8a8-hybrid' or 'w8a8-pallas', got {quantize!r}"
+            )
+        check_routes(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps)
+        routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair,
+                      middle_taps=middle_taps != "fp32", fuse_exit=fuse_exit)
+        for name, on in routes.items():
+            if on and quantize:
+                raise ValueError(f"{name} is a route of the fp path's kernels; "
+                                 f"quantize={quantize!r} has no such route")
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.use_kernels = self.device.type == "cuda" if use_kernels is None else use_kernels
+        self.quantize = quantize
+        self.routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps,
+                           fuse_exit=fuse_exit)
+        # the fp path's weights, stored in the compute dtype; a quantized
+        # scorer serves the w8a8 tree instead and folds only at fp32: the
+        # quantizer reads fp32 folded weights (quantizing the compute-dtype
+        # fold would round every weight twice)
+        self.folded_backbone = (
+            None if quantize else fold_xception_bn(backbone, compute_dtype).to(self.device)
+        )
+        self.fp_tree = (
+            QuantizedXception.from_folded(fold_xception_bn(backbone, torch.float32))
+            .to(self.device) if quantize else None
+        )
+        self.qbackbone: Optional[QuantizedXception] = None  # set by calibrate()
+
+    def _calibrate_on(self, x: torch.Tensor, refine_passes: int) -> None:
+        """Fit the activation scales on the images ``x`` (the depthwise convs
+        quantized too; ``"w8a8-hybrid"`` leaves the middle flow fp), refine
+        ``refine_passes`` times, and serve the tree.
+
+        The refinement fits in IEEE fp32 whatever the compute dtype (the JAX
+        scorers fit in theirs): in bf16 both sides of each per-channel fit
+        carry bf16 rounding, which pulls its gain toward 0, and the refined
+        visual scorer moved away from plain fp32 (ROADMAP Queue 3, F3)."""
+        amaxes = calibrate_amax(self.fp_tree, x, compute_dtype=self.compute_dtype)
+        qtree = quantize_folded_xception(
+            self.fp_tree, amaxes, quant_depthwise=True,
+            skip_middle=self.quantize == "w8a8-hybrid",
+        )
+        if refine_passes:
+            with ieee_fp32():
+                qtree = refine_quantized_xception(qtree, self.fp_tree, x, passes=refine_passes,
+                                                  compute_dtype=torch.float32)
+        self.qbackbone = qtree
+
+    def _backbone_features(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> per-image features ``(N, 2048)`` in the compute dtype."""
+        if self.qbackbone is not None:
+            return xception_quant_walk(
+                self.qbackbone, x, quant=True, compute_dtype=self.compute_dtype,
+                features_only=True, fuse_middle=self.quantize != "w8a8",
+                use_kernels=self.use_kernels,
+            )
+        return self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels,
+                                    **self.routes)
+
+
+class VisualScorer(_XceptionScorer):
     """XceptionLSTMV + ArcFace scoring on raw uint8 frame stacks."""
 
     @classmethod
@@ -120,52 +231,17 @@ class VisualScorer:
         fuse_exit: bool = False,
         device="cuda",
     ):
-        """``use_kernels=None`` runs the middle flow through the K1 kernel
-        (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
-        its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
-        versions (the reference runs compare against this). ``quantize``:
-        one of :data:`QUANT_MODES`. When kernels run, the fp path's routes
-        (``models/fold.py``): ``fuse_entry`` runs the 4 stride-2 blocks
-        through the K3 kernel, ``entry_pair`` their separable pairs through
-        K4 (not both); ``middle_taps="bf16"`` runs K1 in bf16 tap order;
-        ``fuse_exit`` runs conv3 and conv4 through K5. The w8a8 walk has none
-        of these routes, so each raises together with ``quantize``."""
-        if quantize not in QUANT_MODES:
-            raise ValueError(
-                f"quantize must be None, 'w8a8', 'w8a8-hybrid' or 'w8a8-pallas', got {quantize!r}"
-            )
-        check_routes(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps)
-        routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair,
-                      middle_taps=middle_taps != "fp32", fuse_exit=fuse_exit)
-        for name, on in routes.items():
-            if on and quantize:
-                raise ValueError(f"{name} is a route of the fp path's kernels; "
-                                 f"quantize={quantize!r} has no such route")
-        self.device = torch.device(device)
-        self.compute_dtype = compute_dtype
-        # the fp path's weights, stored in the compute dtype; a quantized
-        # scorer serves the w8a8 tree instead and folds only at fp32 (below)
-        self.folded_backbone = (
-            None if quantize else fold_xception_bn(model.backbone, compute_dtype).to(self.device)
-        )
+        """Backbone options: :class:`_XceptionScorer`. ``buckets``: T pads up
+        to a bucket, as in the JAX engine."""
+        super().__init__(model.backbone, compute_dtype=compute_dtype, use_kernels=use_kernels,
+                         quantize=quantize, fuse_entry=fuse_entry, entry_pair=entry_pair,
+                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device)
         self.lstm = copy.deepcopy(model.lstm).to(self.device)
         self.arcface_w = arcface.w.detach().to(self.device, torch.float32)
         self.arcface_s = arcface_s
         self.frame_size = frame_size
         self.mask_padding = mask_padding
-        self.use_kernels = self.device.type == "cuda" if use_kernels is None else use_kernels
-        # length buckets: T pads up to a bucket, as in the JAX engine
         self.buckets = tuple(buckets) if buckets else None
-        self.quantize = quantize
-        self.routes = dict(fuse_entry=fuse_entry, entry_pair=entry_pair, middle_taps=middle_taps,
-                           fuse_exit=fuse_exit)
-        # the quantizer reads fp32 folded weights: quantizing the compute-dtype
-        # fold would round every weight twice
-        self.fp_tree = (
-            QuantizedXception.from_folded(fold_xception_bn(model.backbone, torch.float32))
-            .to(self.device) if quantize else None
-        )
-        self.qbackbone: Optional[QuantizedXception] = None  # set by calibrate()
 
     def _frames_to_x(self, frames_u8: np.ndarray) -> torch.Tensor:
         B, T = frames_u8.shape[:2]
@@ -179,20 +255,11 @@ class VisualScorer:
     def calibrate(self, frames_u8: np.ndarray, *, refine_passes: int = 0) -> None:
         """Fit the w8a8 activation scales on a representative uint8 frame
         batch ``(B, T, H, W, 3)`` and switch the backbone to the quantized
-        tree (no-op when ``quantize=None``). The depthwise convs are
-        quantized too; ``"w8a8-hybrid"`` leaves the middle flow fp."""
+        tree (no-op when ``quantize=None``). ``refine_passes > 0`` adds the
+        affine refinement on the same frames."""
         if self.quantize is None:
             return
-        if refine_passes:
-            raise NotImplementedError(
-                "refine_passes > 0: the affine refinement (refine_quantized_xception) is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
-        x = self._frames_to_x(np.asarray(frames_u8))
-        amaxes = calibrate_amax(self.fp_tree, x, compute_dtype=self.compute_dtype)
-        self.qbackbone = quantize_folded_xception(
-            self.fp_tree, amaxes, quant_depthwise=True,
-            skip_middle=self.quantize == "w8a8-hybrid",
-        )
+        self._calibrate_on(self._frames_to_x(np.asarray(frames_u8)), refine_passes)
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -203,17 +270,7 @@ class VisualScorer:
         if self.quantize is not None and self.qbackbone is None:
             self.calibrate(frames_u8)
         B, T = frames_u8.shape[:2]
-        x = self._frames_to_x(frames_u8)
-        if self.qbackbone is not None:
-            feats = xception_quant_walk(
-                self.qbackbone, x, quant=True, compute_dtype=self.compute_dtype,
-                features_only=True, fuse_middle=self.quantize != "w8a8",
-                use_kernels=self.use_kernels,
-            )
-        else:
-            feats = self.folded_backbone(x, features_only=True, use_kernels=self.use_kernels,
-                                         **self.routes)
-        return feats.reshape(B, T, -1)
+        return self._backbone_features(self._frames_to_x(frames_u8)).reshape(B, T, -1)
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -238,3 +295,178 @@ class VisualScorer:
         emb = select_last_step(outputs, lengths_t, mask_padding=self.mask_padding)
         logits = arcface_apply(self.arcface_w, emb, s=self.arcface_s)
         return torch.softmax(logits, dim=-1)[:, 1].cpu().numpy()
+
+
+class AudioScorer(_XceptionScorer):
+    """XceptionLSTMA scoring straight from raw 16 kHz waveforms."""
+
+    @classmethod
+    def from_bundle(cls, path: str, hidden_dim: int = 512, **kw) -> "AudioScorer":
+        """Build from a ``train_audio`` ``{model[, state]}`` bundle."""
+        return cls(load_audio_bundle(path, hidden_dim), **kw)
+
+    def __init__(
+        self,
+        model: XceptionLSTM,
+        *,
+        sr: int = 16000,
+        n_mfcc: int = 13,
+        n_fft: int = 400,
+        hop_length: int = 160,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        use_kernels: Optional[bool] = None,
+        mask_padding: bool = True,
+        sample_buckets: Optional[Sequence[int]] = None,
+        quantize: Optional[str] = None,
+        fuse_entry: bool = False,
+        entry_pair: bool = False,
+        middle_taps: str = "fp32",
+        fuse_exit: bool = False,
+        device="cuda",
+    ):
+        """Backbone options: :class:`_XceptionScorer`. ``sample_buckets``:
+        the sample axis pads up to a bucket. The true signal is then
+        reflect-centred on the host and framed uncentred on the device, so
+        every frame of the true length is the one the unbucketed engine
+        computes, and the frames past it are masked."""
+        super().__init__(model.backbone, compute_dtype=compute_dtype, use_kernels=use_kernels,
+                         quantize=quantize, fuse_entry=fuse_entry, entry_pair=entry_pair,
+                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device)
+        self.head = copy.deepcopy(nn.ModuleDict(dict(
+            lstm=model.lstm, fc_layers=model.fc_layers, fc_out=model.fc_out))).to(self.device)
+        self.mfcc_kw = dict(sr=sr, n_mfcc=n_mfcc, n_fft=n_fft, hop_length=hop_length)
+        self.mask_padding = mask_padding
+        self.sample_buckets = tuple(sorted(sample_buckets)) if sample_buckets else None
+
+    def _wave_to_imgs(self, waveforms: np.ndarray, centered: bool) -> Tuple[torch.Tensor, int, int]:
+        """``(B, L)`` waveforms -> MFCC images ``(B*T, 64, 64, 3)`` fp32 on the
+        device, ``B``, ``T``."""
+        w = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
+        feats = mfcc(w, center=centered, **self.mfcc_kw)
+        return mfcc_images(feats), feats.shape[0], feats.shape[1]
+
+    def _prepare(self, waveforms: np.ndarray, frame_lengths: Optional[np.ndarray],
+                 sample_lengths: Optional[np.ndarray]):
+        """The host side of :meth:`score`: -> (waveforms, frame lengths,
+        whether the device centres them)."""
+        B, L = waveforms.shape[:2]
+        n_fft, hop = self.mfcc_kw["n_fft"], self.mfcc_kw["hop_length"]
+        half = n_fft // 2
+        if sample_lengths is not None:
+            # mixed lengths: each row centred on its own true length, then a
+            # shared zero-padded sample axis framed uncentred on the device
+            sample_lengths = np.asarray(sample_lengths, np.int64)
+            if sample_lengths.shape != (B,):
+                raise ValueError(f"sample_lengths must be ({B},), got {sample_lengths.shape}")
+            Lb = bucket_length(L, self.sample_buckets) if self.sample_buckets else L
+            if Lb < L:  # longer than the largest bucket: truncate
+                waveforms, L = waveforms[:, :Lb], Lb
+                sample_lengths = np.minimum(sample_lengths, Lb)
+            if np.any(sample_lengths <= half):
+                raise ValueError(f"every sample_length must exceed n_fft//2 = {half} "
+                                 "for reflect centring (librosa's constraint)")
+            centered = np.zeros((B, Lb + 2 * half), np.float32)
+            wf = np.asarray(waveforms, np.float32)
+            for i, Li in enumerate(sample_lengths):
+                centered[i, : Li + 2 * half] = np.pad(wf[i, :Li], (half, half), mode="reflect")
+            n_valid = (1 + sample_lengths // hop).astype(np.int32)
+            frame_lengths = n_valid if frame_lengths is None else np.minimum(frame_lengths, n_valid)
+            return centered, frame_lengths, False
+        if self.sample_buckets:
+            Lb = bucket_length(L, self.sample_buckets)
+            if Lb < L:  # longer than the largest bucket: truncate
+                waveforms, L = waveforms[:, :Lb], Lb
+            # librosa's centring here, on the true length; then the zero pad
+            waveforms = np.pad(np.asarray(waveforms, np.float32), ((0, 0), (half, half)),
+                               mode="reflect")
+            waveforms = np.pad(waveforms, ((0, 0), (0, Lb - L)))
+            valid = np.full((B,), 1 + L // hop, np.int32)  # frames of the true signal
+            frame_lengths = valid if frame_lengths is None else np.minimum(frame_lengths, valid)
+            return waveforms, frame_lengths, False
+        return waveforms, frame_lengths, True
+
+    @_ieee_fp32
+    def calibrate(self, waveforms: np.ndarray, *, refine_passes: int = 0) -> None:
+        """Fit the w8a8 activation scales on the centred MFCC images of a
+        representative waveform batch ``(B, L)`` and switch the backbone to
+        the quantized tree (no-op when ``quantize=None``); ``refine_passes >
+        0`` adds the affine refinement on the same images."""
+        if self.quantize is None:
+            return
+        with torch.inference_mode():
+            imgs, _, _ = self._wave_to_imgs(np.asarray(waveforms), centered=True)
+        self._calibrate_on(imgs, refine_passes)
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def frame_features(self, waveforms: np.ndarray,
+                       sample_lengths: Optional[np.ndarray] = None) -> torch.Tensor:
+        """``(B, L)`` waveforms -> per-frame features ``(B, T, 2048)`` in the
+        compute dtype, on the scorer's device, through the branch
+        :meth:`score` takes. A quantized scorer not yet calibrated calibrates
+        on this batch first, as :meth:`score` does."""
+        if self.quantize is not None and self.qbackbone is None:
+            self.calibrate(waveforms)
+        waveforms, _, centered = self._prepare(waveforms, None, sample_lengths)
+        imgs, B, T = self._wave_to_imgs(waveforms, centered)
+        return self._backbone_features(imgs).reshape(B, T, -1)
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def score(self, waveforms: np.ndarray, frame_lengths: Optional[np.ndarray] = None,
+              sample_lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """``(B, L)`` float waveforms -> fake probabilities ``(B,)``.
+
+        ``sample_lengths (B,)`` marks each row's true length in a batch of
+        clips zero-padded to a common sample axis: each row is reflect-centred
+        on the host on its own length and its frames past ``1 + len // hop``
+        are masked, so each row scores as that clip alone does. Without it
+        every row's true signal is the whole axis."""
+        if self.quantize is not None and self.qbackbone is None:
+            self.calibrate(waveforms)  # implicit first-batch calibration
+        waveforms, frame_lengths, centered = self._prepare(waveforms, frame_lengths,
+                                                           sample_lengths)
+        imgs, B, T = self._wave_to_imgs(waveforms, centered)
+        feats = self._backbone_features(imgs).reshape(B, T, -1)
+        lengths = (None if frame_lengths is None else
+                   torch.as_tensor(np.asarray(frame_lengths), dtype=torch.long, device=self.device))
+        probs = xception_lstm_head_apply(self.head, feats, lengths=lengths,
+                                         mask_padding=self.mask_padding,
+                                         compute_dtype=self.compute_dtype)
+        return probs[:, 0].cpu().numpy()
+
+
+class AVScorer:
+    """Audio-visual fusion over paired clips: ``alpha * p_visual + (1 - alpha)
+    * p_audio``, the rule of the JAX package's batch AV evaluation. Each
+    engine keeps its own buckets, quant mode and kernel routes."""
+
+    def __init__(self, visual: VisualScorer, audio: AudioScorer, *, alpha: float = 0.5):
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError(f"alpha must be in [0, 1], got {alpha}")
+        self.visual = visual
+        self.audio = audio
+        self.alpha = float(alpha)
+
+    @classmethod
+    def from_bundles(cls, visual_path: str, audio_path: str, *, alpha: float = 0.5,
+                     hidden_dim: int = 128, audio_hidden: int = 512, **kw) -> "AVScorer":
+        """Both engines from their training bundles; ``**kw`` (``compute_dtype``,
+        ``mask_padding``, ``quantize``, the routes, ``device``...) goes to both."""
+        return cls(VisualScorer.from_bundle(visual_path, hidden_dim=hidden_dim, **kw),
+                   AudioScorer.from_bundle(audio_path, hidden_dim=audio_hidden, **kw),
+                   alpha=alpha)
+
+    def score(self, frames_u8: np.ndarray, waveforms: np.ndarray,
+              lengths: Optional[np.ndarray] = None, frame_lengths: Optional[np.ndarray] = None,
+              sample_lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """uint8 frames ``(B, T, H, W, 3)`` and float waveforms ``(B, L)`` of the
+        same B clips -> fused fake probabilities ``(B,)``. ``sample_lengths``:
+        as :meth:`AudioScorer.score`."""
+        if frames_u8.shape[0] != waveforms.shape[0]:
+            raise ValueError(
+                f"paired modalities must share B: {frames_u8.shape[0]} vs {waveforms.shape[0]}"
+            )
+        p_v = self.visual.score(frames_u8, lengths)
+        p_a = self.audio.score(waveforms, frame_lengths, sample_lengths=sample_lengths)
+        return self.alpha * p_v + (1.0 - self.alpha) * p_a

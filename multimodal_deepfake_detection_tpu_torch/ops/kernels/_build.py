@@ -5,6 +5,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (listed in ``.gitignore``), then loaded with ``ctypes``. The hash covers every
 source in ``csrc/`` and the flags, so an edited source rebuilds. Nothing here
 falls back: without ``nvcc`` or a CUDA device the loader raises.
+:func:`launch` is the one place a wrapper calls its kernel from.
 """
 from __future__ import annotations
 
@@ -79,3 +80,16 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing or stale, then load it."""
     build(name)
     return ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest()}.so"))
+
+
+def launch(lib: ctypes.CDLL, entry: str, x: torch.Tensor, *args) -> None:
+    """Call ``lib``'s C entry point ``entry(*args, stream)`` with ``x``'s
+    device current and that device's current stream; raises with the
+    library's message when it returns an error. A ``ctypes`` launch goes to
+    the current device, so without the guard a tensor on a second GPU would
+    launch against the first GPU's context."""
+    with torch.cuda.device(x.device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry.removeprefix('mdfd_')} kernel failed: "
+                           f"{lib.mdfd_error_string(err).decode()}")

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..quant import quantize
-from ._build import load_library
+from ._build import launch, load_library
 
 
 def dw_w8a8_ref(
@@ -103,13 +103,9 @@ def dw_w8a8(x: torch.Tensor, w_q: torch.Tensor, s_in: torch.Tensor, sc: torch.Te
     lib = _lib()
     N, H, W, _ = x.shape
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    err = lib.mdfd_dw_w8a8(
-        x.data_ptr(), s_in.data_ptr(), w_q.data_ptr(), sc.data_ptr(), out.data_ptr(),
-        N, H, W, C, int(x.dtype == torch.float32), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"dw_w8a8 kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_dw_w8a8", x,
+           x.data_ptr(), s_in.data_ptr(), w_q.data_ptr(), sc.data_ptr(), out.data_ptr(),
+           N, H, W, C, int(x.dtype == torch.float32), int(out_dtype == torch.float32))
     dw_w8a8.launches += 1
     return out
 

@@ -42,7 +42,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import load_library
+from ._build import launch, load_library
 from ._plain import check_operands, pad_rows, pointwise_ref
 from .entry_pair import check_pair, entry_pair_ref, pack_pair
 
@@ -105,13 +105,9 @@ def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool)
     scratch = lambda rows, cols: torch.empty((rows, cols), dtype=torch.bfloat16, device=x.device)
     M = N * H * W
     mid, outs, xs = scratch(M, Cmid), scratch(M, Cout), scratch(N * Hp * Wp, ldk0)
-    err = lib.mdfd_entry_block(
-        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, out, mid, outs, xs)),
-        N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(x.dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"entry_block kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_entry_block", x,
+           *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, out, mid, outs, xs)),
+           N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(x.dtype == torch.float32))
     entry_block.launches += 1
     return out
 

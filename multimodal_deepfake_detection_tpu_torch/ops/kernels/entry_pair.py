@@ -43,7 +43,7 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import launch, load_library
 from ._plain import check_operands, check_widths, check_x, depthwise3x3_ref, pointwise_ref
 from .sepconv_unit import pack_unit
 
@@ -121,13 +121,10 @@ def entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_sums: 
     out = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
     mid = torch.empty((N * H * W, Cmid), dtype=torch.float32 if mid_fp32 else torch.bfloat16,
                       device=x.device)
-    err = lib.mdfd_entry_pair(
-        *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, out, mid)),
-        N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(col_sums), int(mid_fp32),
-        int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"entry_pair kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_entry_pair", x,
+           *(t.data_ptr() for t in (x, dw0, pw0, b0, dw1, pw1, b1, out, mid)),
+           N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(col_sums), int(mid_fp32),
+           int(x.dtype == torch.float32))
     entry_pair.launches += 1
     return out
 

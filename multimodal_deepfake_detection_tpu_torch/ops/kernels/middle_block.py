@@ -45,7 +45,7 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import launch, load_library
 from ._plain import (
     check_operands,
     check_widths,
@@ -127,13 +127,10 @@ def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.T
     ldk = pw.shape[-1]
     out = torch.empty_like(x)
     scratch = torch.empty((N * H * W, ldk), dtype=torch.bfloat16, device=x.device)
-    err = lib.mdfd_middle_block(
-        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), b.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, H, W, C, ldk, dw.shape[0], int(x.dtype == torch.float32),
-        int(taps == "bf16"), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"middle_block kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_middle_block", x,
+           x.data_ptr(), dw.data_ptr(), pw.data_ptr(), b.data_ptr(), out.data_ptr(),
+           scratch.data_ptr(), N, H, W, C, ldk, dw.shape[0], int(x.dtype == torch.float32),
+           int(taps == "bf16"))
     (middle_block_bf16taps if taps == "bf16" else middle_block).launches += 1
     return out
 

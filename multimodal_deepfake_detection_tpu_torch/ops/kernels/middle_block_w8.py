@@ -33,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import load_library
+from ._build import launch, load_library
 
 PW_ROW_ALIGN = 64  # bytes of int8: the GEMM's operand rows start on 64-byte boundaries
 
@@ -134,13 +134,10 @@ def middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b):
     taps, sc = _scaled(dw, s_w, s_in, s_dq)
     out = torch.empty_like(x)
     scratch = torch.empty((N * H * W, ldk), dtype=torch.int8, device=x.device)
-    err = lib.mdfd_middle_block_w8(
-        x.data_ptr(), taps.data_ptr(), pw_q.data_ptr(), sc.data_ptr(), b.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), N, H, W, C, ldk, dw.shape[0],
-        int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"middle_block_w8 kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_middle_block_w8", x,
+           x.data_ptr(), taps.data_ptr(), pw_q.data_ptr(), sc.data_ptr(), b.data_ptr(),
+           out.data_ptr(), scratch.data_ptr(), N, H, W, C, ldk, dw.shape[0],
+           int(x.dtype == torch.float32))
     middle_block_w8.launches += 1
     return out
 

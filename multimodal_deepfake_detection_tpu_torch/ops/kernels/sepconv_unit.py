@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import launch, load_library
 from ._plain import (
     check_operands,
     check_widths,
@@ -97,13 +97,10 @@ def sepconv_unit(x, dw, pw, b, *, leading_relu: bool, trailing_relu: bool):
     Cout, ldk = pw.shape
     out = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
     scratch = torch.empty((N * H * W, ldk), dtype=torch.bfloat16, device=x.device)
-    err = lib.mdfd_sepconv_unit(
-        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), b.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), N, H, W, Cin, Cout, ldk, int(leading_relu), int(trailing_relu),
-        int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"sepconv_unit kernel failed: {lib.mdfd_error_string(err).decode()}")
+    launch(lib, "mdfd_sepconv_unit", x,
+           x.data_ptr(), dw.data_ptr(), pw.data_ptr(), b.data_ptr(), out.data_ptr(),
+           scratch.data_ptr(), N, H, W, Cin, Cout, ldk, int(leading_relu), int(trailing_relu),
+           int(x.dtype == torch.float32))
     sepconv_unit.launches += 1
     return out
 

@@ -87,3 +87,22 @@ def test_bf16_scoring_leaves_the_flag_alone(parts, monkeypatch, flag):
     scorer.folded_backbone = probe = Probe()
     scorer.score(_frames())
     assert probe.seen == [flag] and torch.backends.cudnn.allow_tf32 == flag
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_refinement_fits_in_ieee_fp32(parts, tf32_on, monkeypatch, dtype):
+    """``calibrate(refine_passes=1)`` refines in fp32 with TF32 off, whatever
+    the scorer's compute dtype (calibration itself runs in the compute
+    dtype), and the process's flag comes back."""
+    seen = []
+
+    def refine(qtree, fp_tree, x, *, passes, compute_dtype):
+        seen.append((passes, compute_dtype, torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return qtree
+
+    monkeypatch.setattr(serve, "refine_quantized_xception", refine)
+    scorer = VisualScorer(*parts, compute_dtype=dtype, quantize="w8a8", device="cpu")
+    scorer.calibrate(_frames(), refine_passes=1)
+    assert seen == [(1, torch.float32, False, False)]
+    assert torch.backends.cudnn.allow_tf32 and scorer.qbackbone is not None

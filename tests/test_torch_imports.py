@@ -1,5 +1,5 @@
-"""The port imports no JAX and nothing of the JAX package, and its kernels
-never fall back silently.
+"""The port imports no JAX and nothing of the JAX package, its kernels
+never fall back silently, and each launches on its tensor's device.
 
 No JAX needed: these run wherever the port runs.
 """
@@ -7,10 +7,19 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from multimodal_deepfake_detection_tpu_torch.models.heads import XceptionLSTM
+from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import dw_w8a8 as dw_w8a8_mod
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import entry_block as entry_block_mod
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import entry_pair as entry_pair_mod
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import middle_block as middle_block_mod
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import middle_block_w8 as k2_mod
+from multimodal_deepfake_detection_tpu_torch.ops.kernels import sepconv_unit as sepconv_unit_mod
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import entry_block
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair import entry_pair
@@ -43,6 +52,10 @@ import multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_pair
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit
 import multimodal_deepfake_detection_tpu_torch.ops.quant
 import multimodal_deepfake_detection_tpu_torch.models.quant
+import multimodal_deepfake_detection_tpu_torch.models.heads
+import multimodal_deepfake_detection_tpu_torch.ops.mfcc
+import multimodal_deepfake_detection_tpu_torch.core.precision
+import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
 assert not loaded, loaded
@@ -127,3 +140,100 @@ def test_int8_kernels_never_take_the_plain_version_off_the_cpu(name):
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args, **({"leading_relu0": True} if name == "entry_block" else {}))
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("route,counter", [
+    ({}, middle_block), ({"fuse_entry": True}, entry_block), ({"entry_pair": True}, entry_pair),
+    ({"middle_taps": "bf16"}, middle_block_bf16taps),
+])
+def test_audio_path_never_takes_the_plain_version_off_the_cpu(route, counter):
+    """The audio engine with kernels on, on a device that is neither the CPU
+    nor CUDA: the MFCC frontend and the stem run, then the first kernel's
+    wrapper raises instead of running its plain version."""
+    model = XceptionLSTM(8, generator=torch.Generator().manual_seed(0))
+    scorer = AudioScorer(model, device="meta", use_kernels=True, **route)
+    before = counter.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        scorer.score(np.zeros((1, 800), np.float32))
+    assert counter.launches == before
+
+
+class _FakeCuda:
+    """Stands in for ``torch.cuda.device`` and ``current_stream`` and for a
+    kernel library: records the device current at each C call."""
+
+    def __init__(self, err=0):
+        self.current, self.calls, self.err = "the default device", [], err
+
+    def device(self, dev):
+        fake = self
+
+        class Guard:
+            def __enter__(self):
+                self.before, fake.current = fake.current, dev
+
+            def __exit__(self, *exc):
+                fake.current = self.before
+        return Guard()
+
+    def current_stream(self, dev):
+        return type("Stream", (), {"cuda_stream": f"stream of {dev}"})()
+
+    def __getattr__(self, entry):  # the library's C entry points
+        if entry == "mdfd_error_string":
+            return lambda err: b"boom"
+        return lambda *args: self.calls.append((entry, self.current, args[-1])) or self.err
+
+
+def _guarded_call(name):
+    """(module, wrapper, args, kw) with ``x`` on the meta device."""
+    C, meta = 16, torch.empty((1, 2, 2, 16), device="meta")
+    pw, vec, taps = torch.zeros((C, C), dtype=torch.bfloat16), torch.zeros(C), torch.zeros((9, C))
+    if name == "middle_block":
+        return (middle_block_mod, middle_block,
+                (meta, torch.zeros((3, 9, C)), torch.zeros((3, C, C), dtype=torch.bfloat16),
+                 torch.zeros((3, C))), {})
+    if name == "entry_pair":
+        return entry_pair_mod, entry_pair, (meta, taps, pw, vec, taps, pw, vec), {
+            "leading_relu0": True}
+    if name == "sepconv_unit":
+        return sepconv_unit_mod, sepconv_unit, (meta, taps, pw, vec), {
+            "leading_relu": False, "trailing_relu": True}
+    fn, args = _meta_args(name)
+    mod = {"middle_block_w8": k2_mod, "dw_w8a8": dw_w8a8_mod, "entry_block": entry_block_mod}[name]
+    return mod, fn, args, {"leading_relu0": True} if name == "entry_block" else {}
+
+
+KERNEL_MODULES = ["middle_block", "middle_block_w8", "dw_w8a8", "entry_block", "entry_pair",
+                  "sepconv_unit"]
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_kernel_launches_on_its_tensors_device(name, monkeypatch):
+    """Every wrapper launches through ``_build.launch``: its C call runs with
+    x's device current (``torch.cuda.device``) and gets x's device's stream,
+    and the default device comes back after. (One GPU here at most: what a
+    second device does is not run.)"""
+    mod, fn, args, kw = _guarded_call(name)
+    fake = _FakeCuda()
+    monkeypatch.setattr(torch.cuda, "device", fake.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake.current_stream)
+    monkeypatch.setattr(mod, "_lib", lambda: fake)
+    monkeypatch.setattr(mod, "check_pair" if name == "entry_pair" else "_check", lambda *a: None)
+    monkeypatch.setattr(fn, "launches", 0)
+    fn(*args, **kw)
+    assert fake.calls == [(f"mdfd_{name}", args[0].device, f"stream of {args[0].device}")]
+    assert fake.current == "the default device" and fn.launches == 1
+
+
+def test_kernel_error_raises_with_the_library_message(monkeypatch):
+    mod, fn, args, kw = _guarded_call("sepconv_unit")
+    fake = _FakeCuda(err=7)
+    monkeypatch.setattr(torch.cuda, "device", fake.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake.current_stream)
+    monkeypatch.setattr(mod, "_lib", lambda: fake)
+    monkeypatch.setattr(mod, "_check", lambda *a: None)
+    monkeypatch.setattr(fn, "launches", 0)
+    with pytest.raises(RuntimeError, match="sepconv_unit kernel failed: boom"):
+        fn(*args, **kw)
+    assert fn.launches == 0 and fake.current == "the default device"

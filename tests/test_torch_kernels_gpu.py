@@ -10,14 +10,16 @@ exact integer paths and are held to bit equality. Frames wider than the
 kernels once took (W > 512 in a stride-2 block, > 1024 in the int8
 depthwise) are scored through the routes against their plain paths, and
 the fp32 scorer is held to the CPU's IEEE fp32 with torch's default TF32
-flags left in force.
+flags left in force. Every kernel also runs at the audio path's shapes
+(6,464 MFCC images of 64^2, 64 one-second clips), and the audio engine's
+kernel paths are held against its plain paths.
 """
 import numpy as np
 import pytest
 import torch
 
 from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
-from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer, VisualScorer
 from multimodal_deepfake_detection_tpu_torch.ops.conv import BatchNorm
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
@@ -460,3 +462,96 @@ def test_fp32_scorer_is_ieee_under_default_flags(cuda_default_flags):
     ref = _outputs(VisualScorer(model, arc, device="cpu", **kw), frames)
     torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-3, atol=2e-4)
     np.testing.assert_allclose(got[0], ref[0], atol=1e-4)
+
+
+# The audio path: 64 one-second clips are 6,464 MFCC images of 64^2; the
+# kernels' shapes there (random inputs: MFCC images are constant along W and
+# would hide a column fault).
+AUDIO_N = 64 * 101
+AUDIO_BLOCKS = [(29, 64, 128, 128, False), (15, 128, 256, 256, True), (8, 256, 728, 728, True),
+                (4, 728, 728, 1024, True)]
+
+
+@pytest.mark.parametrize("kernel", ["middle_block", "middle_block_bf16taps", "middle_block_w8",
+                                    "dw_w8a8", "sepconv_unit"]
+                         + [f"{k}_{H}" for k in ("entry_block", "entry_pair")
+                            for H, *_ in AUDIO_BLOCKS])
+def test_kernels_at_the_audio_shapes(cuda, kernel):
+    """K1 (both tap orders) and K2 at (6464, 4, 4, 728), the int8 depthwise
+    at its largest audio site (6464, 29, 29, 128), K5 at conv3's and conv4's
+    (6464, 2, 2, .), K3 and K4 at each stride-2 block's: the bf16 bars, K2
+    and the depthwise bit-equal."""
+    g = torch.Generator().manual_seed(len(kernel))
+    N = AUDIO_N
+    if kernel.startswith("middle_block") and kernel != "middle_block_w8":
+        x, dw, pw, b = _k1_operands(g, N, 4, 728, torch.bfloat16, 736, cuda)
+        taps = "bf16" if kernel.endswith("bf16taps") else "fp32"
+        _close(middle_block(x, dw, pw, b, taps=taps), middle_block_ref(x, dw, pw, b, taps=taps))
+    elif kernel == "middle_block_w8":
+        C, ldk = 728, 768
+        x = torch.randn((N, 4, 4, C), generator=g).to(cuda, torch.bfloat16)
+        dw = torch.randn((3, 9, C), generator=g) * 0.2
+        pw_q = torch.randint(-127, 128, (3, C, ldk), generator=g, dtype=torch.int8)
+        s_w = torch.rand((3, C), generator=g) * 1e-2 + 1e-3
+        s_dq = torch.full((3,), 2.5 / 127.0)
+        s_in = s_dq[:, None] * (0.5 + 1.5 * torch.rand((3, C), generator=g))
+        b = torch.randn((3, C), generator=g) * 0.1
+        ops = (x,) + tuple(t.to(cuda) for t in (dw, pw_q, s_w, s_in, s_dq, b))
+        assert torch.equal(middle_block_w8(*ops), middle_block_w8_ref(*ops))
+    elif kernel == "dw_w8a8":
+        C = 128
+        x = torch.randn((N, 29, 29, C), device=cuda).to(torch.bfloat16)
+        w_q = torch.randint(-127, 128, (C, 1, 3, 3), generator=g, dtype=torch.int8).to(cuda)
+        s_in = ((2.5 / 127.0) * (0.5 + 1.5 * torch.rand(C, generator=g))).to(cuda)
+        sc = (1e-3 * (0.5 + torch.rand(C, generator=g))).to(cuda)
+        assert torch.equal(dw_w8a8(x, w_q, s_in, sc, torch.bfloat16),
+                           dw_w8a8_ref(x, w_q, s_in, sc, torch.bfloat16))
+    elif kernel == "sepconv_unit":
+        for Cin, Cout in ((1024, 1536), (1536, 2048)):
+            x = torch.randn((N, 2, 2, Cin), device=cuda).to(torch.bfloat16)
+            ops = (x, (torch.randn((9, Cin), generator=g) * 0.3).to(cuda),
+                   _rows(g, Cout, Cin, cuda), (torch.randn(Cout, generator=g) * 0.1).to(cuda))
+            kw = dict(leading_relu=False, trailing_relu=True)
+            _close(sepconv_unit(*ops, **kw), sepconv_unit_ref(*ops, **kw))
+    else:
+        name, H = kernel.rsplit("_", 1)
+        _, Cin, Cmid, Cout, lead = next(blk for blk in AUDIO_BLOCKS if blk[0] == int(H))
+        vec = lambda *shape, s: (torch.randn(shape, generator=g) * s).to(cuda)
+        x = torch.randn((N, int(H), int(H), Cin), device=cuda).to(torch.bfloat16)
+        ops = (x, vec(9, Cin, s=0.3), _rows(g, Cmid, Cin, cuda), vec(Cmid, s=0.1),
+               vec(9, Cmid, s=0.3), _rows(g, Cout, Cmid, cuda), vec(Cout, s=0.1))
+        if name == "entry_block":
+            ops += (_rows(g, Cout, Cin, cuda), vec(Cout, s=0.1))
+            _close(entry_block(*ops, leading_relu0=lead), entry_block_ref(*ops, leading_relu0=lead))
+        else:
+            _close(entry_pair(*ops, leading_relu0=lead), entry_pair_ref(*ops, leading_relu0=lead))
+
+
+@pytest.mark.parametrize("path", ["fp", "fuse_entry", "routes", "w8a8-pallas"])
+def test_audio_scorer_kernel_paths_match_plain(cuda, path):
+    """Two one-second clips (202 MFCC images) through the audio engine's
+    kernel paths against its plain paths: the fp paths against plain fp32 at
+    the fp bars, w8a8-pallas against the plain path on the same calibrated
+    tree (bit-exact integer kernels: scores within 5e-4, 1 - cos <= 2e-6)."""
+    model = _scorer_parts(seed=3)[0]
+    waves = np.random.default_rng(3).normal(0, 0.1, (2, 16000)).astype(np.float32)
+    outputs = lambda sc: (sc.score(waves), sc.frame_features(waves).double().reshape(-1, 2048))
+    if path == "w8a8-pallas":
+        kern = AudioScorer(model, quantize=path, device=cuda)
+        kern.calibrate(waves)
+        plain = AudioScorer(model, quantize=path, use_kernels=False, device=cuda)
+        plain.qbackbone = kern.qbackbone
+        counter, per_call, bars = middle_block_w8, 8, (1 - 2e-6, 5e-4)
+    else:
+        route = {"fp": {}, "fuse_entry": dict(fuse_entry=True),
+                 "routes": dict(middle_taps="bf16", entry_pair=True, fuse_exit=True)}[path]
+        kern = AudioScorer(model, device=cuda, **route)
+        plain = AudioScorer(model, compute_dtype=torch.float32, use_kernels=False, device=cuda)
+        counter = entry_block if path == "fuse_entry" else (
+            entry_pair if path == "routes" else middle_block)
+        per_call, bars = (8 if path == "fp" else 4), (0.999, 2e-2)
+    before = counter.launches
+    got = outputs(kern)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2 * per_call  # score and frame_features
+    _held(got, outputs(plain), *bars)

@@ -61,15 +61,23 @@ def test_visual_scorer_quant_matches_jax(heads, mode):
 
 
 def test_scorer_rejects_unknown_mode_and_refinement(heads):
+    """An unknown mode raises; ``refine_passes > 0``, once refused, now
+    refines (its parity with JAX: tests/test_torch_refine.py): only the
+    epilogue's ``s_w`` and ``b`` move."""
     params, state, arc = heads
     model = jax_weights.xception_lstm_from_jax(params, state)
     head = jax_weights.arcface_from_jax(arc)
     with pytest.raises(ValueError, match="quantize must be"):
         VisualScorer(model, head, device="cpu", quantize="int4")
-    sc = VisualScorer(model, head, device="cpu", quantize="w8a8")
-    frames = np.zeros((1, 1, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.calibrate(frames, refine_passes=1)
+    frames = np.random.default_rng(3).integers(0, 255, (1, 2, 32, 32, 3), np.uint8)
+    trees = []
+    for passes in (0, 1):
+        sc = VisualScorer(model, head, device="cpu", quantize="w8a8", compute_dtype=torch.float32)
+        sc.calibrate(frames, refine_passes=passes)
+        trees.append(sc.qbackbone)
+    assert torch.equal(trees[0].conv1.w_q, trees[1].conv1.w_q)
+    assert not torch.equal(trees[0].conv1.s_w, trees[1].conv1.s_w)
+    assert not torch.equal(trees[0].conv4.pointwise.b, trees[1].conv4.pointwise.b)
 
 
 def test_cli_quantize_matches_jax_scorer(heads, tmp_path):
