@@ -59,7 +59,22 @@ raises and exits non-zero:
    counted; every path, route and quant mode through ``AudioScorer``,
    counted, against the plain paths, each with its control at the audio
    bars; both engines' refined calibration; ``--engine av`` against the two
-   engines' own fusion.
+   engines' own fusion;
+7. the AU engines, which run no kernel of the port's own (the JAX package
+   runs none of its Pallas kernels there either): seeded full-width
+   AU-face (lstm_hidden 256) and AU-patch (hidden 128, lstm_hidden 128)
+   bundles in the JAX format; ``.npy`` inputs of T 16, 9 and 5 (17 AUs,
+   faces of 224^2, patches of 128^2; one float input, one ``_weights.npy``
+   sibling) scored through ``cli/serve.py --engine au_patch`` and ``--engine
+   au_face``, bf16 and ``--quantize w8a8``, counted (no launch of any kernel);
+   each against ``AUFaceScorer`` / ``AUPatchScorer`` on the CLI's batch, and
+   those against the plain fp32 scorer on the card (per-image ResNet-18
+   features and pooled embeddings, cosine; scores), w8a8 with its bars and a
+   clipping-calibration control that must fail them; the refined
+   calibration no further from plain fp32 than the unrefined; the card's
+   fp32 scorer against the CPU's on a small input; then ``score()`` of 8
+   clips x 16 frames, bf16 and w8a8 in turns (clips/s, frames/s), the
+   batch's pageable H2D copy alone, and one profile per engine and mode.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
@@ -1723,6 +1738,296 @@ def profile_calls(torch, scorers: dict, frames, smi: str, top: int = 15) -> None
                 f"{e.key[:240]}")
 
 
+# Phase 7, the AU engines: full width (AU-face lstm_hidden 256, tokens of
+# 512; AU-patch hidden 128, lstm_hidden 128), 17 AUs, faces of 224^2 and
+# patches of 128^2. The CLI scores clips of these lengths; the timed batch
+# is 8 clips of 16 frames, the reference's train_au_face defaults.
+AU_T = (16, 9, 5)
+AU_CLIPS, AU_FRAMES, NUM_AUS, FACE, PATCH = 8, 16, 17, 224, 128
+AU_CPU_FRAMES = 2  # the card's fp32 scorer against the CPU's: 1 clip of 2 frames
+# w8a8 against plain fp32: (min cosine of per-image features and pooled
+# embeddings, max score |d|), between the sound readings, 1 - cos <= 2.07e-4
+# and |d| <= 6.21e-4, and the clipping calibration's, 1 - cos >= 4.38e-3 and
+# |d| >= 6.07e-3, of either engine (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+AU_QUANT_FP32_BARS = (1 - 1e-3, 2e-3)
+
+
+def write_au_bundles(torch, workdir: str) -> dict:
+    """Seeded full-width AU-face and AU-patch models with random BN
+    statistics, in the JAX bundle format -> {engine: path}."""
+    from multimodal_deepfake_detection_tpu_torch.core.checkpoint import save_bundle
+    from multimodal_deepfake_detection_tpu_torch.models.au_face import AUFaceDetector
+    from multimodal_deepfake_detection_tpu_torch.models.resnet_lstm import AUPatchClassifier
+    from multimodal_deepfake_detection_tpu_torch.ops.conv import BatchNorm
+    from multimodal_deepfake_detection_tpu_torch.utils.jax_weights import (
+        au_face_to_jax,
+        au_patch_to_jax,
+    )
+
+    paths = {}
+    for engine, seed, make, to_jax in (
+            ("au_face", 7, lambda g: AUFaceDetector(256, generator=g), au_face_to_jax),
+            ("au_patch", 8, lambda g: AUPatchClassifier(128, 128, generator=g), au_patch_to_jax)):
+        g = torch.Generator().manual_seed(seed)
+        model = make(g)
+        with torch.no_grad():
+            for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
+                n = bn.mean.shape[0]
+                bn.scale.copy_(0.8 + 0.4 * torch.rand(n, generator=g))
+                bn.bias.copy_(0.05 * torch.randn(n, generator=g))
+                bn.mean.copy_(0.1 * torch.randn(n, generator=g))
+                bn.var.copy_(0.5 + torch.rand(n, generator=g))
+        params, state = to_jax(model)
+        paths[engine] = os.path.join(workdir, f"{engine}.npz")
+        save_bundle(paths[engine], {"model": params, "state": state})
+    return paths
+
+
+def write_au_inputs(workdir: str) -> dict:
+    """``.npy`` inputs of T in AU_T: AU-patch stacks (the second as float in
+    [0, 1], the third with a ``_weights.npy`` sibling), and faces with AU
+    stacks paired by stem (the third face stack as float)."""
+    rng = np.random.default_rng(71)
+    dirs = {k: os.path.join(workdir, k) for k in ("au_patches", "faces", "aus")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i, t in enumerate(AU_T):
+        patches = rng.integers(0, 256, (t, NUM_AUS, PATCH, PATCH, 3), dtype=np.uint8)
+        np.save(os.path.join(dirs["au_patches"], f"p{i}.npy"),
+                patches.astype(np.float32) / 255.0 if i == 1 else patches)
+        if i == 2:
+            np.save(os.path.join(dirs["au_patches"], f"p{i}_weights.npy"),
+                    rng.uniform(0.1, 1.0, (t, NUM_AUS)).astype(np.float32))
+        face = rng.integers(0, 256, (t, FACE, FACE, 3), dtype=np.uint8)
+        np.save(os.path.join(dirs["faces"], f"c{i}.npy"),
+                face.astype(np.float32) / 255.0 if i == 2 else face)
+        np.save(os.path.join(dirs["aus"], f"c{i}.npy"),
+                rng.integers(0, 256, (t, NUM_AUS, PATCH, PATCH, 3), dtype=np.uint8))
+    return dirs
+
+
+def au_outputs(torch, scorer, args, streams: dict):
+    """Scores, the per-image ResNet-18 features of every stream (fp64, on the
+    host) and the pooled embeddings of ``scorer`` on ``score(*args)`` (which
+    calibrates a quantized scorer not yet calibrated)."""
+    scores = scorer.score(*args)
+    feats = torch.cat([scorer.features(k, u8).double().cpu() for k, u8 in streams.items()])
+    return scores, feats, scorer.embed(*args).double().cpu()
+
+
+def au_held(torch, label, a, b, bars, *, control: bool = False) -> float:
+    """Min cosine of the per-image features and of the pooled embeddings,
+    max score |d| of ``au_outputs`` ``a`` and ``b`` against ``bars =
+    (cos_min, score_tol)``; a control must fail them. Returns 1 - cos min."""
+    cos_f = torch.nn.functional.cosine_similarity(a[1], b[1], dim=-1).min().item()
+    cos_e = torch.nn.functional.cosine_similarity(a[2], b[2], dim=-1).min().item()
+    score_d = float(np.abs(a[0] - b[0]).max())
+    ok = min(cos_f, cos_e) >= bars[0] and score_d <= bars[1]
+    verdict = ("; control: fails, as it must" if not ok else "; control: PASSES") if control else ""
+    say(f"{label}: per-image feature 1 - cos max {1 - cos_f:.3e}, pooled embedding 1 - cos max "
+        f"{1 - cos_e:.3e} (<= {1 - bars[0]:.1e}), score max|d| {score_d:.3e} (<= {bars[1]:.1e}); "
+        f"scores {np.round(a[0], 4).tolist()}{verdict}")
+    if ok == control:
+        raise AssertionError(f"{label}: " + ("the control passes the bars" if control
+                                             else "disagreement"))
+    return 1 - min(cos_f, cos_e)
+
+
+def au_engine_inputs(engine: str, dirs: dict):
+    """The CLI's argv, its Config, the paths it scores as one chunk, the
+    chunk's ``score`` arguments and each stream's real (unpadded) images."""
+    from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
+
+    if engine == "au_patch":
+        argv = ["--engine", "au_patch", "--input", dirs["au_patches"]]
+    else:
+        argv = ["--engine", "au_face", "--input", dirs["faces"], "--au_input", dirs["aus"]]
+    cfg = cli_serve.parse_config(argv)
+    paths = cli_serve._list_inputs(cfg.input, (".npy",))
+    if engine == "au_patch":
+        args = cli_serve.au_patch_args(cfg, paths)
+        streams = {"backbone": np.concatenate([args[0][i, :n] for i, n in enumerate(args[2])])}
+    else:
+        args = cli_serve.au_face_args(cfg, paths)
+        streams = {
+            "face_backbone": np.concatenate([args[0][i, :t] for i, t in enumerate(AU_T)]),
+            "au_backbone": np.concatenate([args[1][i, :t] for i, t in enumerate(AU_T)])}
+    return argv + ["--batch_size", "8"], cfg, paths, args, streams
+
+
+def au_clipped(scorer, args_flat: dict) -> dict:
+    """Each stream's int8 tree from a calibration that clips: every
+    activation scale halved."""
+    from multimodal_deepfake_detection_tpu_torch.models.quant import (
+        calibrate_resnet18_amax,
+        quantize_folded_resnet18,
+    )
+
+    out = {}
+    for key, fp in scorer.fp_trees.items():
+        amaxes = calibrate_resnet18_amax(fp, scorer._flat(key, args_flat[key]),
+                                         compute_dtype=scorer.compute_dtype)
+        out[key] = quantize_folded_resnet18(fp, amaxes, headroom=0.5)
+    return out
+
+
+def phase_au(torch, workdir: str, smi: str) -> None:
+    """The AU-face and AU-patch serving paths (phase 7)."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import AUFaceScorer, AUPatchScorer
+
+    t_phase = time.perf_counter()
+    bundles = write_au_bundles(torch, workdir)
+    dirs = write_au_inputs(workdir)
+    classes = {"au_face": AUFaceScorer, "au_patch": AUPatchScorer}
+    cli_buckets = (25, 50, 75)  # the CLI's default buckets, as the scorers below take them
+    no_kernels = per_call(0)
+    for engine, cls in classes.items():
+        argv, cfg, paths, args, streams = au_engine_inputs(engine, dirs)
+        argv += ["--ckpt_path", bundles[engine]]
+        make = lambda **kw: cls.from_bundle(bundles[engine], device="cuda", buckets=cli_buckets,
+                                            **kw)
+        plain = make(compute_dtype=torch.float32)
+        ref = au_outputs(torch, plain, args, streams)
+        # the CLI, bf16 and w8a8: no kernel of the port's own on this path
+        for mode, flags in (("bf16", []), ("w8a8", ["--quantize", "w8a8"])):
+            cli = run_cli(torch, workdir, argv, f"{engine} CLI {mode}", flags, no_kernels,
+                          len(AU_T))
+            scorer = make(quantize="w8a8" if mode == "w8a8" else None)
+            got = counted(torch, f"{engine} {mode} ({cls.__name__})",
+                          lambda: au_outputs(torch, scorer, args, streams), no_kernels)
+            d = np.abs(got[0] - cli).max()
+            say(f"{engine} CLI {mode} vs {cls.__name__} on the CLI's batch: score max|d| "
+                f"{d:.3e} (<= 1e-5; the JSONL keeps 6 places)")
+            if d > 1e-5:
+                raise AssertionError(f"the {engine} CLI's {mode} scores differ from the scorer's")
+            if mode == "bf16":
+                au_held(torch, f"{engine} bf16 vs plain fp32", got, ref,
+                        (FEATURE_COS_MIN, SCORE_TOL))
+                continue
+            au_held(torch, f"{engine} w8a8 vs plain fp32", got, ref, AU_QUANT_FP32_BARS)
+            sound = scorer.qbackbones
+            flat = ({"backbone": args[0]} if engine == "au_patch"
+                    else {"face_backbone": args[0], "au_backbone": args[1]})
+            scorer.qbackbones = au_clipped(scorer, flat)
+            au_held(torch, f"control {engine} w8a8, clipping calibration, vs plain fp32",
+                    au_outputs(torch, scorer, args, streams), ref, AU_QUANT_FP32_BARS,
+                    control=True)
+            scorer.qbackbones = sound
+        # refinement: no further from plain fp32 than the unrefined calibration
+        calib = args[:1] if engine == "au_patch" else args[:2]
+        rel = []
+        for passes in (0, 1):
+            scorer = make(quantize="w8a8")
+            scorer.calibrate(*calib, refine_passes=passes)
+            got = au_outputs(torch, scorer, args, streams)
+            rel.append(((got[1] - ref[1]).norm() / ref[1].norm()).item())
+            say(f"{engine} w8a8 refine_passes={passes} vs plain fp32: per-image features "
+                f"relative error {rel[-1]:.4e}, score max|d| {np.abs(got[0] - ref[0]).max():.3e}")
+        if rel[1] > rel[0]:
+            raise AssertionError(f"{engine}: the refined calibration is further from plain fp32")
+        # the card's fp32 scorer against the CPU's, torch's default TF32 flags in force
+        small = tuple(a[:1, :AU_CPU_FRAMES] for a in args[:2]) + (
+            (np.minimum(args[2][:1], AU_CPU_FRAMES),) if engine == "au_patch"
+            else (args[2][:1, :AU_CPU_FRAMES],))
+        small_streams = {k: v[:AU_CPU_FRAMES] for k, v in streams.items()}
+        got = au_outputs(torch, plain, small, small_streams)
+        cpu = au_outputs(torch, cls.from_bundle(bundles[engine], device="cpu",
+                                                compute_dtype=torch.float32), small, small_streams)
+        df = max((got[i] - cpu[i]).abs().max().item() for i in (1, 2))
+        ds = float(np.abs(got[0] - cpu[0]).max())
+        say(f"{engine} fp32 on the card (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"outside the call) vs the CPU: features and embedding max|d| {df:.3e}, score "
+            f"max|d| {ds:.3e}")
+        for i in (1, 2):
+            torch.testing.assert_close(got[i], cpu[i], rtol=1e-3, atol=2e-4)
+        if ds > 1e-4:
+            raise AssertionError(f"{engine}: the card's fp32 scores differ from the CPU's")
+        del plain
+        torch.cuda.empty_cache()
+    au_times(torch, bundles, smi)
+    say(f"phase 7 (AU engines) took {time.perf_counter() - t_phase:.1f} s")
+
+
+def au_batch(engine: str):
+    """The timed batch: 8 clips of 16 frames, 17 AUs, faces of 224^2 and
+    patches of 128^2, uint8 -> ``score`` arguments."""
+    rng = np.random.default_rng(72)
+    patches = rng.integers(0, 256, (AU_CLIPS, AU_FRAMES, NUM_AUS, PATCH, PATCH, 3),
+                           dtype=np.uint8)
+    if engine == "au_patch":
+        return (patches,)
+    return rng.integers(0, 256, (AU_CLIPS, AU_FRAMES, FACE, FACE, 3), dtype=np.uint8), patches
+
+
+def au_times(torch, bundles: dict, smi: str) -> None:
+    """``score()`` of the timed batch, bf16 and w8a8 in turns (host clock,
+    around calls that return host scores); the pageable H2D copy of the
+    batch alone; one profile per engine and mode."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import AUFaceScorer, AUPatchScorer
+
+    for engine, cls in (("au_face", AUFaceScorer), ("au_patch", AUPatchScorer)):
+        args = au_batch(engine)
+        scorers = {"bf16": cls.from_bundle(bundles[engine], device="cuda"),
+                   "w8a8": cls.from_bundle(bundles[engine], device="cuda", quantize="w8a8")}
+        nbytes = sum(a.nbytes for a in args)
+        copy_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in args:
+                torch.from_numpy(a).to(scorers["bf16"].device)
+            torch.cuda.synchronize()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+        say(f"time {engine} H2D copy of the batch's uint8 inputs ({nbytes / 1e6:.1f} MB, "
+            f"pageable): {min(copy_ms):.2f} ms ({nbytes / min(copy_ms) / 1e6:.1f} GB/s); runs "
+            f"{copy_ms} [{smi}]")
+        for sc_ in scorers.values():
+            sc_.score(*args)  # warm-up; calibrates the w8a8 scorer on this batch
+        call_ms = {name: [] for name in scorers}
+        for name in list(scorers) + list(scorers)[::-1]:  # in turns
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                scorers[name].score(*args)  # returns host scores: synchronised
+            call_ms[name].append((time.perf_counter() - t0) / 3 * 1e3)
+        for name, runs in call_ms.items():
+            ms = float(np.mean(runs))
+            say(f"time {engine} B={AU_CLIPS} T={AU_FRAMES} A={NUM_AUS} {name}: {ms:.2f} ms/call, "
+                f"{AU_CLIPS / ms * 1e3:.1f} clips/s, {AU_CLIPS * AU_FRAMES / ms * 1e3:.1f} "
+                f"frames/s; runs {runs} [{smi}]")
+        au_profile(torch, engine, scorers, args, min(copy_ms), smi)
+        del scorers
+        torch.cuda.empty_cache()
+
+
+def au_profile(torch, engine: str, scorers: dict, args, copy_ms: float, smi: str,
+               top: int = 12) -> None:
+    """One ``score()`` per scorer under ``torch.profiler``: device busy time
+    against the host clock, the H2D copies' device time (beside
+    ``copy_ms``, the copy timed alone), the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, scorer in scorers.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            scorer.score(*args)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        ops.sort(key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        h2d_ms = sum(e.self_device_time_total for e in ops if "HtoD" in e.key) / 1e3
+        h2d = f"H2D copy records {h2d_ms:.2f} ms of the busy time"
+        if h2d_ms < copy_ms / 2:  # the profiler on the card drops records (PERF.md §6)
+            h2d += (f", against {copy_ms:.2f} ms for the copy alone: the idle share counts the "
+                    f"copies the profiler dropped")
+        say(f"profile {engine} {name}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms on the "
+            f"host clock (idle share {1 - busy_ms / wall_ms:.3f}); {h2d} [{smi}]")
+        for e in ops[:top]:
+            say(f"profile {engine} {name}:   {e.self_device_time_total / 1e3:8.3f} ms  "
+                f"x{e.count:<5d} {e.key[:200]}")
+
+
 SOURCES = {
     "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
                      "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80; with fp32 "
@@ -1766,6 +2071,7 @@ def main() -> int:
         times = phase_times(torch, smi, workdir)
         audio_times = phase_audio_times(torch, smi, workdir)
         audio_launches = phase_audio(torch, workdir, smi)
+        phase_au(torch, workdir, smi)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,8 +1,9 @@
 """Batch scoring CLI over the port's engines.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/cli/serve.py`` for the
-visual, audio and AV engines: scores every input under ``--input`` and writes
-one JSONL record ``{"path", "score", "fake"}`` per clip.
+visual, audio, AV, AU-face and AU-patch engines: scores every input under
+``--input`` and writes one JSONL record ``{"path", "score", "fake"}`` per
+clip.
 
     python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
         --engine visual --ckpt_path best.npz --input clips/ --output scores.jsonl
@@ -11,6 +12,10 @@ one JSONL record ``{"path", "score", "fake"}`` per clip.
     python -m multimodal_deepfake_detection_tpu_torch.cli.serve \\
         --engine av --ckpt_path visual.npz --audio_ckpt_path audio.npz \\
         --input clips/ --audio_input waves/
+    python -m multimodal_deepfake_detection_tpu_torch.cli.serve \
+        --engine au_patch --ckpt_path au_patch.npz --input patches/
+    python -m multimodal_deepfake_detection_tpu_torch.cli.serve \
+        --engine au_face --ckpt_path au_face.npz --input faces/ --au_input patches/
 
 Inputs: ``visual`` and ``av`` read ``.npy`` uint8 frame stacks ``(T, H, W, 3)``;
 ``audio`` reads ``.npy`` float waveforms and ``.wav`` files (through
@@ -18,18 +23,28 @@ Inputs: ``visual`` and ``av`` read ``.npy`` uint8 frame stacks ``(T, H, W, 3)``;
 stem under ``--audio_input``, ``.wav`` before ``.npy``. A batch of waveforms
 is zero-padded to its longest and scored without per-row sample lengths, as
 the JAX CLI does, so a shorter clip's padding is scored as silence.
+``au_patch`` reads ``.npy`` patch stacks ``(T, A, h, w, 3)``, each with an
+optional ``<stem>_weights.npy`` ``(T, A)`` sibling (ones without), scored
+with their lengths; ``au_face`` pairs each ``.npy`` face stack ``(T, H, W,
+3)`` with the AU patch stack of the same stem under ``--au_input`` (its
+first ``--num_aus`` AUs), masks the padded AU steps out of the attention,
+and, as the JAX CLI does, scores the chunk without the clips' lengths: a
+shorter clip's padded frames and AU tokens go through the biLSTMs, the
+cross-attention and the pools. Float AU inputs are clipped to [0, 1] and
+scaled to 0..255.
 
 Flags are the JAX Config's fields of these engines, with the same names,
 defaults and ``--field value`` syntax, plus ``--device`` and the fp path's
 kernel routes. ``--quantize w8a8|w8a8-hybrid|w8a8-pallas`` serves the int8
-backbone, calibrated on the first batch. On the fp path: ``--fuse_entry
+backbone, calibrated on the first batch (the AU engines: ``w8a8`` only, the
+int8 ResNet-18s). On the fp path: ``--fuse_entry
 true`` runs the stride-2 blocks through the K3 kernel, ``--entry_pair true``
 their separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap
 order; ``--fuse_exit true`` runs the exit sepconvs through K5; every option
-goes to both engines of ``av``. ``--compute_dtype float32`` scores in IEEE
-fp32 on the card (TF32 is off for the duration of each call). Video
-decoding, the AU engines, AOT artifacts and the device mesh are not ported
-yet.
+goes to both engines of ``av``, and none to the AU engines, which raise
+on them. ``--compute_dtype float32`` scores in IEEE fp32 on the card (TF32
+is off for the duration of each call). Video decoding, AOT artifacts and
+the device mesh are not ported yet.
 """
 from __future__ import annotations
 
@@ -45,9 +60,10 @@ import numpy as np
 
 @dataclasses.dataclass
 class Config:
-    engine: str = "visual"  # visual | audio | av
+    engine: str = "visual"  # visual | audio | av | au_face | au_patch
     ckpt_path: str = "Checkpoints/XceptionLSTMV_ArcFace_Best.npz"
     input: str = "clips"
+    au_input: Optional[str] = None  # au_face: the AU patch root, paired by stem
     audio_input: Optional[str] = None  # av: .wav/.npy waveform root, paired by stem
     audio_ckpt_path: str = ""  # av: the audio bundle (ckpt_path is the visual one)
     av_alpha: float = 0.5  # av: fused = alpha * p_visual + (1 - alpha) * p_audio
@@ -56,6 +72,10 @@ class Config:
     max_frames: int = 50
     hidden_dim: int = 128  # the visual head's width (audio's is audio_hidden)
     audio_hidden: int = 512
+    num_aus: int = 17
+    lstm_hidden: int = 256  # au_face
+    patch_hidden: int = 128  # au_patch hidden_dim
+    patch_lstm_hidden: int = 128
     buckets: Tuple[int, ...] = (25, 50, 75)
     sample_buckets: Tuple[int, ...] = (16000, 48000, 160000)
     compute_dtype: str = "bfloat16"
@@ -145,10 +165,37 @@ def _pad_stack(items: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
     return out, lengths
 
 
+def _to_u8(arr: np.ndarray) -> np.ndarray:
+    """An AU engine's input as uint8: float clipped to [0, 1] and scaled, as
+    the JAX CLI does."""
+    return arr if arr.dtype == np.uint8 else (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+
+
+def _build_au_engine(cfg: Config):
+    from ..core.precision import parse_dtype
+    from ..models.serve import AUFaceScorer, AUPatchScorer
+
+    routes = dict(fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
+                  middle_taps=cfg.middle_taps != "fp32", fuse_exit=cfg.fuse_exit)
+    for name, on in routes.items():
+        if on:
+            raise ValueError(f"--{name} is a route of the Xception engines' kernels; "
+                             f"engine {cfg.engine} has none")
+    common = dict(compute_dtype=parse_dtype(cfg.compute_dtype), buckets=cfg.buckets or None,
+                  quantize=cfg.quantize or None, device=cfg.device)
+    if cfg.engine == "au_face":
+        return AUFaceScorer.from_bundle(cfg.ckpt_path, lstm_hidden=cfg.lstm_hidden, **common)
+    return AUPatchScorer.from_bundle(cfg.ckpt_path, hidden_dim=cfg.patch_hidden,
+                                     lstm_hidden=cfg.patch_lstm_hidden,
+                                     mask_padding=cfg.mask_padding, **common)
+
+
 def build_engine(cfg: Config):
     from ..core.precision import parse_dtype
     from ..models.serve import AudioScorer, AVScorer, VisualScorer
 
+    if cfg.engine in ("au_face", "au_patch"):
+        return _build_au_engine(cfg)
     common = dict(
         compute_dtype=parse_dtype(cfg.compute_dtype), mask_padding=cfg.mask_padding,
         quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
@@ -166,7 +213,8 @@ def build_engine(cfg: Config):
         if not cfg.audio_ckpt_path:
             raise ValueError("engine av needs --audio_ckpt_path (ckpt_path = visual bundle)")
         return AVScorer(visual(cfg.ckpt_path), audio(cfg.audio_ckpt_path), alpha=cfg.av_alpha)
-    raise ValueError(f"engine {cfg.engine!r} is not ported; 'visual', 'audio' and 'av' are")
+    raise ValueError(f"unknown engine {cfg.engine!r}; 'visual', 'audio', 'av', 'au_face' and "
+                     "'au_patch' are ported")
 
 
 def _audio_path(stem: str, folder: str) -> str:
@@ -178,7 +226,44 @@ def _audio_path(stem: str, folder: str) -> str:
     raise FileNotFoundError(f"no audio for {stem} under {folder}")
 
 
+def au_patch_args(cfg: Config, chunk: List[str]) -> tuple:
+    """``AUPatchScorer.score``'s arguments for the stacks of ``chunk``: the
+    padded uint8 batch, the weights (ones without a ``_weights.npy``
+    sibling) and the lengths."""
+    items, weights = [], []
+    for p in chunk:
+        arr = _to_u8(np.load(p)[: cfg.max_frames])
+        wp = p[:-4] + "_weights.npy"
+        weights.append(np.load(wp).astype(np.float32)[: cfg.max_frames] if os.path.exists(wp)
+                       else np.ones(arr.shape[:2], np.float32))
+        items.append(arr)
+    batch, lengths = _pad_stack(items)
+    return batch, _pad_stack(weights)[0], lengths
+
+
+def au_face_args(cfg: Config, chunk: List[str]) -> tuple:
+    """``AUFaceScorer.score``'s arguments for the faces of ``chunk`` and their
+    AU stacks paired by stem: the padded batches and the mask of the padded
+    AU steps. As in the JAX CLI, no lengths: the chunk's padding is scored."""
+    vids, aus = [], []
+    for p in chunk:
+        stem = os.path.splitext(os.path.basename(p))[0]
+        ap = os.path.join(cfg.au_input, stem + ".npy")
+        if not os.path.exists(ap):
+            raise FileNotFoundError(f"no AU patches for {stem} under {cfg.au_input}")
+        vids.append(_to_u8(np.load(p)[: cfg.max_frames]))
+        aus.append(_to_u8(np.load(ap)[: cfg.max_frames, : cfg.num_aus]))
+    vbatch, _ = _pad_stack(vids)
+    abatch, alen = _pad_stack(aus)
+    mask = (np.arange(abatch.shape[1])[None, :] < alen[:, None]).astype(np.float32)
+    return vbatch, abatch, np.repeat(mask[:, :, None], abatch.shape[2], axis=2)
+
+
 def _score_chunk(engine, cfg: Config, chunk: List[str]) -> np.ndarray:
+    if cfg.engine == "au_patch":
+        return engine.score(*au_patch_args(cfg, chunk))
+    if cfg.engine == "au_face":
+        return engine.score(*au_face_args(cfg, chunk))
     if cfg.engine == "visual":
         return engine.score(*_pad_stack([_load_visual_item(p, cfg) for p in chunk]))
     if cfg.engine == "audio":  # no sample lengths: the padding is scored, as in JAX
@@ -199,6 +284,8 @@ def main(argv=None, *, log=print) -> int:
         # up front: in the loop a missing flag would surface only on the
         # first chunk, or never on an empty input directory
         raise ValueError("--audio_input (wav/npy root) required for av")
+    if cfg.engine == "au_face" and not cfg.au_input:
+        raise ValueError("--au_input (AU patch root) required for au_face")
     paths = _list_inputs(cfg.input, (".npy", ".wav") if cfg.engine == "audio" else (".npy",))
     if not paths:
         raise FileNotFoundError(f"no scoreable inputs under {cfg.input}")

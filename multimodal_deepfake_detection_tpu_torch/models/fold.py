@@ -27,6 +27,10 @@ each block also keeps the operands of the kernels that can run it, and
 - with ``fuse_exit``, the exit sepconvs conv3 and conv4 through K5
   (``ops/kernels/sepconv_unit.py``) with their trailing ReLU fused, the
   targets ``sepconv_unit_pallas`` names.
+
+:func:`fold_resnet18_bn` folds the AU models' ResNet-18 the same way into a
+:class:`FoldedResNet18`, held in fp32: the quantizer
+(``models/quant.py``) reads it, and no kernel runs it.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ..ops.kernels.entry_block import entry_block, pack_entry_block
 from ..ops.kernels.entry_pair import entry_pair as _entry_pair
 from ..ops.kernels.middle_block import TAPS, middle_block, pack_middle_block
 from ..ops.kernels.sepconv_unit import pack_unit, sepconv_unit
+from .resnet import ResNet18
 from .xception import Xception
 
 _EPS = 1e-5
@@ -215,3 +220,56 @@ def fold_xception_bn(model: Xception, dtype: torch.dtype = torch.float32) -> Fol
     """Fold a live-BN :class:`Xception` into a BN-free module in ``dtype``."""
     with torch.no_grad():
         return FoldedXception(model, dtype)
+
+
+class FoldedBasicBlock(nn.Module):
+    """A folded BasicBlock: ``conv1``, ``conv2`` and ``downsample`` as fp32
+    ``<name>_w`` / ``<name>_b`` buffers (``downsample_*`` None without a
+    projection)."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.stride = block.stride
+        down = block.downsample
+        for name, conv, bn in (("conv1", block.conv1, block.bn1), ("conv2", block.conv2, block.bn2),
+                               ("downsample", down and down.conv, down and down.bn)):
+            w, b = _fold(conv.detach(), bn) if conv is not None else (None, None)
+            self.register_buffer(f"{name}_w", w)
+            self.register_buffer(f"{name}_b", b)
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        cd = compute_dtype
+        r = torch.relu(conv2d(x, self.conv1_w, self.conv1_b, stride=self.stride, padding=1,
+                              compute_dtype=cd))
+        r = conv2d(r, self.conv2_w, self.conv2_b, padding=1, compute_dtype=cd)
+        idn = x
+        if self.downsample_w is not None:
+            idn = conv2d(x, self.downsample_w, self.downsample_b, stride=self.stride,
+                         compute_dtype=cd)
+        return torch.relu(r + idn)
+
+
+class FoldedResNet18(nn.Module):
+    """BN-free ResNet-18 in fp32; ``forward`` mirrors :class:`ResNet18`'s."""
+
+    def __init__(self, model: ResNet18):
+        super().__init__()
+        w, b = _fold(model.conv1.detach(), model.bn1)
+        self.register_buffer("conv1_w", w)
+        self.register_buffer("conv1_b", b)
+        self.stages = nn.ModuleList(
+            nn.ModuleList(FoldedBasicBlock(blk) for blk in stage) for stage in model.stages)
+
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        h = conv2d(x, self.conv1_w, self.conv1_b, stride=2, padding=3, compute_dtype=compute_dtype)
+        h = max_pool2d(torch.relu(h), 3, 2, 1)
+        for stage in self.stages:
+            for block in stage:
+                h = block(h, compute_dtype)
+        return global_avg_pool(h)
+
+
+def fold_resnet18_bn(model: ResNet18) -> FoldedResNet18:
+    """Fold a live-BN :class:`ResNet18` into a BN-free fp32 module."""
+    with torch.no_grad():
+        return FoldedResNet18(model)

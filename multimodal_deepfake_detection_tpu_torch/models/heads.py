@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import at_least_f32
-from ..ops.conv import Linear
+from ..ops.conv import Linear, dense
 from ..ops.lstm import LSTM, lstm_apply, select_last_step
 from .xception import Xception
 
@@ -52,13 +52,6 @@ def xception_lstm_embed(head, features: torch.Tensor, *, lengths: Optional[torch
     return select_last_step(outputs, lengths, mask_padding=mask_padding)
 
 
-def _dense(layer: Linear, x: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """``x @ w.T`` then ``+ b`` in the compute dtype: two roundings, as the
-    JAX ``linear`` (a dot, then the bias add)."""
-    dtype = compute_dtype or torch.promote_types(x.dtype, layer.w.dtype)
-    return x.to(dtype) @ layer.w.to(dtype).T + layer.b.to(dtype)
-
-
 def xception_lstm_head_apply(head, features: torch.Tensor, *,
                              lengths: Optional[torch.Tensor] = None, mask_padding: bool = True,
                              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -67,8 +60,8 @@ def xception_lstm_head_apply(head, features: torch.Tensor, *,
     h = xception_lstm_embed(head, features, lengths=lengths, mask_padding=mask_padding,
                             compute_dtype=compute_dtype)
     for layer in head.fc_layers:
-        h = torch.relu(_dense(layer, h, compute_dtype))
-    return torch.sigmoid(_dense(head.fc_out, h, compute_dtype).float())
+        h = torch.relu(dense(layer, h, compute_dtype))
+    return torch.sigmoid(dense(head.fc_out, h, compute_dtype).float())
 
 
 class ArcFace(nn.Module):

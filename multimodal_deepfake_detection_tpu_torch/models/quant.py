@@ -30,7 +30,15 @@ fault and is not ported: K1 and K2 are exact at any trunk size.
 The walk's ``tap``/``shadow`` hooks report every conv site's output, and,
 with a shadow tree, that tree's node applied to the same input beside it;
 :func:`refine_quantized_xception` fits a per-channel affine correction of a
-w8a8 tree on them. The ResNet-18 half is not ported yet.
+w8a8 tree on them.
+
+The ResNet-18 half (the AU models' backbone) follows the same scheme over a
+:class:`QuantizedResNet18`: :func:`resnet18_quant_walk` with the same modes
+and hooks, :func:`calibrate_resnet18_amax`, :func:`quantize_folded_resnet18`
+and :func:`refine_quantized_resnet18`. Every one of its convs, the 7x7 stem
+included, is int8 through ``conv2d_w8a8`` (an int8 im2col GEMM); none goes
+through a kernel of the port's own, as none of the JAX package's goes
+through a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ from ..ops.kernels.middle_block_w8 import (
     pack_middle_block_q,
 )
 from ..ops.quant import conv2d_w8a8, depthwise_conv2d_w8a8, quantize_weight
-from .fold import FoldedXception
+from .fold import FoldedResNet18, FoldedXception
 from .xception import XCEPTION_BLOCK_SPECS
 
 NODE_KEYS = ("w", "b", "w_q", "s_w", "s_in", "s_dq")
@@ -494,3 +502,147 @@ def refine_quantized_xception(
         QuantBlock(spec, list(blk.units), blk.skip)
         for spec, blk in zip(XCEPTION_BLOCK_SPECS, refined.blocks))
     return refined
+
+
+# ---------------------------------------------------------------------------
+# ResNet-18 (the AU models' backbone, models/resnet.py): the same scheme
+# ---------------------------------------------------------------------------
+
+class ResBlockNode(nn.Module):
+    """One BasicBlock of the tree: ``conv1``, ``conv2`` and ``downsample``
+    (None without a projection) :class:`ConvNode` sites."""
+
+    def __init__(self, stride: int, conv1: ConvNode, conv2: ConvNode,
+                 downsample: Optional[ConvNode] = None):
+        super().__init__()
+        self.stride = stride
+        self.conv1, self.conv2, self.downsample = conv1, conv2, downsample
+
+
+class QuantizedResNet18(nn.Module):
+    """The ResNet-18 tree of conv sites that :func:`resnet18_quant_walk`
+    runs: all fp from :meth:`from_folded`, int8 from
+    :func:`quantize_folded_resnet18`."""
+
+    def __init__(self, conv1: ConvNode, stages: Sequence[Sequence[ResBlockNode]]):
+        super().__init__()
+        self.conv1 = conv1
+        self.stages = nn.ModuleList(nn.ModuleList(stage) for stage in stages)
+
+    @classmethod
+    def from_folded(cls, folded: FoldedResNet18) -> "QuantizedResNet18":
+        """The all-fp tree of a folded module (fp32, as the quantizer reads it)."""
+        def node(blk, name):
+            w = getattr(blk, f"{name}_w")
+            return None if w is None else ConvNode(w=w, b=getattr(blk, f"{name}_b"))
+
+        stages = [[ResBlockNode(blk.stride, node(blk, "conv1"), node(blk, "conv2"),
+                                node(blk, "downsample")) for blk in stage]
+                  for stage in folded.stages]
+        return cls(ConvNode(w=folded.conv1_w, b=folded.conv1_b), stages)
+
+
+def _resnet18_sites(tree: QuantizedResNet18) -> Iterator[str]:
+    """Walk-order keys of every conv site: the stem, then each block's
+    ``conv1``, ``conv2`` and ``downsample``."""
+    yield "conv1"
+    for i, stage in enumerate(tree.stages):
+        for b, blk in enumerate(stage):
+            yield f"stages/{i}/{b}/conv1"
+            yield f"stages/{i}/{b}/conv2"
+            if blk.downsample is not None:
+                yield f"stages/{i}/{b}/downsample"
+
+
+def resnet18_quant_walk(
+    tree: QuantizedResNet18,
+    x: torch.Tensor,
+    *,
+    quant: bool = False,
+    observe: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    tap: Optional[Callable] = None,
+    shadow: Optional[QuantizedResNet18] = None,
+):
+    """The shared structural forward on NHWC images -> ``(N, 512)`` features:
+    the fp folded forward (``quant=False``, equal to
+    ``FoldedResNet18.forward``), with ``observe`` also each site's fp32
+    ``(Ci,)`` input amax (returns ``(out, obs)``), or the w8a8 forward
+    (``quant=True``). ``tap``/``shadow``: as in :func:`xception_quant_walk`."""
+    if shadow is not None and tap is None:
+        raise ValueError("shadow= needs a tap= to report the paired outputs to")
+    obs = {} if observe else None
+
+    def apply(node, h, stride, padding, q):
+        if q and node.quantized:
+            return conv2d_w8a8(h, node.w_q, node.s_w, node.s_in, node.b, node.s_dq,
+                               stride=stride, padding=padding, out_dtype=compute_dtype)
+        return conv2d(h, node.w, node.b, stride=stride, padding=padding,
+                      compute_dtype=compute_dtype)
+
+    def reg(site, node, h, stride, padding):
+        if obs is not None:
+            obs[site] = h.float().abs().amax(dim=(0, 1, 2))
+        y = apply(node, h, stride, padding, quant)
+        if tap is not None and shadow is None:
+            tap(site, y)
+        elif tap is not None:  # the shadow node applies as stored
+            tap(site, y, apply(_resolve_site(shadow, site), h, stride, padding, True))
+        return y
+
+    h = max_pool2d(torch.relu(reg("conv1", tree.conv1, x, 2, 3)), 3, 2, 1)
+    for i, stage in enumerate(tree.stages):
+        for b, blk in enumerate(stage):
+            r = torch.relu(reg(f"stages/{i}/{b}/conv1", blk.conv1, h, blk.stride, 1))
+            r = reg(f"stages/{i}/{b}/conv2", blk.conv2, r, 1, 1)
+            idn = h
+            if blk.downsample is not None:
+                idn = reg(f"stages/{i}/{b}/downsample", blk.downsample, h, blk.stride, 0)
+            h = torch.relu(r + idn)
+    out = global_avg_pool(h)
+    return (out, obs) if observe else out
+
+
+@torch.inference_mode()
+def calibrate_resnet18_amax(fp_tree: QuantizedResNet18, calib_x: torch.Tensor, *,
+                            compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, np.ndarray]:
+    """Per-site, per-input-channel amaxes of the plain fp walk over
+    ``calib_x`` (serving-normalised, /255) -> ``{site: fp32 (Ci,)}``."""
+    _, obs = resnet18_quant_walk(fp_tree, calib_x, observe=True, compute_dtype=compute_dtype)
+    return {k: v.cpu().numpy().astype(np.float32) for k, v in obs.items()}
+
+
+@torch.inference_mode()
+def quantize_folded_resnet18(
+    fp_tree: QuantizedResNet18, amaxes: dict, *, headroom: float = 1.0,
+    act_scales: str = "channel", smooth_alpha: float = 0.5,
+) -> QuantizedResNet18:
+    """The w8a8 tree from the fp32 fp tree and calibrated amaxes, every conv
+    int8; ``headroom``, ``act_scales`` and ``smooth_alpha``: see
+    :func:`_quant_conv_node`."""
+    def qconv(node, site):
+        if site not in amaxes:
+            raise ValueError(f"calibration amaxes missing site: {site}")
+        return _quant_conv_node(node, amaxes[site], headroom=headroom, act_scales=act_scales,
+                                smooth_alpha=smooth_alpha)
+
+    stages = [[ResBlockNode(
+        blk.stride, qconv(blk.conv1, f"stages/{i}/{b}/conv1"),
+        qconv(blk.conv2, f"stages/{i}/{b}/conv2"),
+        None if blk.downsample is None else qconv(blk.downsample, f"stages/{i}/{b}/downsample"))
+        for b, blk in enumerate(stage)] for i, stage in enumerate(fp_tree.stages)]
+    return QuantizedResNet18(qconv(fp_tree.conv1, "conv1"), stages)
+
+
+def refine_quantized_resnet18(
+    qtree: QuantizedResNet18, fp_tree: QuantizedResNet18, calib_x: torch.Tensor, *,
+    passes: int = 1, output_sites: Sequence[str] = ("stages/3/1/conv2",),
+    shrink_n0: float = 64.0, compute_dtype: torch.dtype = torch.float32,
+) -> QuantizedResNet18:
+    """The affine refinement of :func:`refine_quantized_xception` on a w8a8
+    ResNet-18 tree: local fits at every site, then the output touch-up at
+    the last block's ``conv2``, the residual-branch conv nearest the pooled
+    features. Returns a new tree."""
+    return _refine_tree(qtree, fp_tree, calib_x, walk=resnet18_quant_walk,
+                        sites=list(_resnet18_sites(fp_tree)), output_sites=output_sites,
+                        passes=passes, shrink_n0=shrink_n0, compute_dtype=compute_dtype)

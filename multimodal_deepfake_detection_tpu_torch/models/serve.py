@@ -1,7 +1,9 @@
-"""Serving engines: uint8 clips or raw waveforms -> fake probabilities.
+"""Serving engines: uint8 clips, raw waveforms or AU patch stacks -> fake
+probabilities.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/models/serve.py``'s
-``VisualScorer``, ``AudioScorer`` and ``AVScorer``. The two engines share
+``VisualScorer``, ``AudioScorer``, ``AVScorer``, ``AUFaceScorer`` and
+``AUPatchScorer``. The two Xception engines share
 the backbone (:class:`_XceptionScorer`): the BN-folded Xception in the
 compute dtype, the 8 middle-flow blocks through the K1 kernel when the
 tensors are on CUDA (with ``middle_taps="bf16"`` in bf16 tap order), with
@@ -20,6 +22,13 @@ w8a8 tree (``models/quant.py``).
   the LSTM, last valid step and MLP head in the compute dtype, sigmoid in
   fp32.
 - :meth:`AVScorer.score`: ``alpha * p_visual + (1 - alpha) * p_audio``.
+- :meth:`AUFaceScorer.score` and :meth:`AUPatchScorer.score`: uint8 inputs
+  -> fp32 / 255, optional bilinear resize; the AU models
+  (``models/au_face.py``, ``models/resnet_lstm.py``) with their ResNet-18s
+  in eval BN on cuDNN, or with ``quantize="w8a8"`` the int8 ResNet-18 trees
+  (``models/quant.py``); ``sigmoid(logits[:, 0])`` in fp32. No kernel of
+  the port's own runs on these paths: the JAX package runs none of its
+  Pallas kernels there either.
 
 Clips are padded (or cut) to a length bucket as the JAX engines do, so the
 scores match them; the JAX meshes and jit cache are not ported here.
@@ -55,21 +64,33 @@ from ..ops.resize import resize_bilinear
 from ..utils.jax_weights import (
     arcface_from_jax,
     arcface_to_jax,
+    au_face_from_jax,
+    au_face_to_jax,
+    au_patch_from_jax,
+    au_patch_to_jax,
     xception_lstm_from_jax,
     xception_lstm_to_jax,
 )
-from .fold import check_routes, fold_xception_bn
+from .au_face import AUFaceDetector, au_face_detector_apply, masked_mean
+from .fold import check_routes, fold_resnet18_bn, fold_xception_bn
 from .heads import ArcFace, XceptionLSTM, arcface_apply, xception_lstm_head_apply
 from .quant import (
+    QuantizedResNet18,
     QuantizedXception,
     calibrate_amax,
+    calibrate_resnet18_amax,
+    quantize_folded_resnet18,
     quantize_folded_xception,
+    refine_quantized_resnet18,
     refine_quantized_xception,
+    resnet18_quant_walk,
     xception_quant_walk,
 )
+from .resnet_lstm import AUPatchClassifier, au_patch_classifier_apply
 from .xception import Xception
 
 QUANT_MODES = (None, "w8a8", "w8a8-hybrid", "w8a8-pallas")
+AU_QUANT_MODES = (None, "w8a8")
 AUDIO_IMAGE = (64, 64)  # each MFCC column becomes one image of this size
 
 
@@ -470,3 +491,284 @@ class AVScorer:
         p_v = self.visual.score(frames_u8, lengths)
         p_a = self.audio.score(waveforms, frame_lengths, sample_lengths=sample_lengths)
         return self.alpha * p_v + (1.0 - self.alpha) * p_a
+
+
+def load_au_face_bundle(path: str, lstm_hidden: int = 256) -> AUFaceDetector:
+    """Read a JAX ``train_au_face`` bundle ``{model[, embed, arcface, state]}``
+    or a bare model tree: ``model`` merges strictly onto a fresh tree, and
+    where that fails non-strictly (missing weights keep the port's seeded
+    init); ``state`` leniently. Other trees are ignored."""
+    params, state = au_face_to_jax(AUFaceDetector(lstm_hidden,
+                                                  generator=torch.Generator().manual_seed(0)))
+    bundle = load_bundle(path)
+    tree = bundle.get("model", bundle)
+    try:
+        params = merge_params(params, tree, strict=True)
+    except (KeyError, ValueError):
+        params = merge_params(params, tree, strict=False)
+    if "state" in bundle:
+        state = merge_params(state, bundle["state"], strict=False)
+    return au_face_from_jax(params, state)
+
+
+def load_au_patch_bundle(path: str, hidden_dim: int = 128, lstm_hidden: int = 128
+                         ) -> AUPatchClassifier:
+    """Read a JAX ``train_au_patch`` bundle ``{model[, state]}`` or a bare
+    model tree: ``model`` strictly, ``state`` leniently."""
+    params, state = au_patch_to_jax(AUPatchClassifier(
+        hidden_dim, lstm_hidden, generator=torch.Generator().manual_seed(0)))
+    bundle = load_bundle(path)
+    params = merge_params(params, bundle.get("model", bundle), strict=True)
+    if "state" in bundle:
+        state = merge_params(state, bundle["state"], strict=False)
+    return au_patch_from_jax(params, state)
+
+
+def _prep(u8: np.ndarray, size: Optional[Tuple[int, int]], device) -> torch.Tensor:
+    """uint8 ``(..., H, W, 3)`` -> fp32 / 255 on ``device``, resized
+    bilinearly to ``size`` when it differs."""
+    x = torch.from_numpy(np.ascontiguousarray(u8)).to(device).float() / 255.0
+    if size is not None and tuple(x.shape[-3:-1]) != tuple(size):
+        x = resize_bilinear(x, size)
+    return x
+
+
+def _pad_time(arr: np.ndarray, Tb: int) -> np.ndarray:
+    """Zero-pad (or cut) axis 1 to ``Tb``."""
+    T = arr.shape[1]
+    if Tb <= T:
+        return arr[:, :Tb]
+    pad = np.zeros((arr.shape[0], Tb - T) + arr.shape[2:], arr.dtype)
+    return np.concatenate([arr, pad], axis=1)
+
+
+class _ResNetScorer:
+    """The ResNet-18 streams of an AU engine: the model's own eval-BN
+    backbones, or with ``quantize="w8a8"`` their int8 trees, calibrated (and
+    refined) from the fp32 fold."""
+
+    def __init__(self, model: nn.Module, sizes: dict, *, compute_dtype: torch.dtype,
+                 quantize: Optional[str], device):
+        """``sizes``: each stream's backbone attribute of ``model`` -> the
+        image size its inputs are resized to (None: as given)."""
+        if quantize not in AU_QUANT_MODES:
+            raise ValueError(f"quantize must be None or 'w8a8', got {quantize!r}")
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.quantize = quantize
+        self.model = copy.deepcopy(model).to(self.device)
+        self.sizes = dict(sizes)
+        self.fp_trees = ({k: QuantizedResNet18.from_folded(
+            fold_resnet18_bn(getattr(self.model, k))) for k in self.sizes}
+            if quantize else None)
+        self.qbackbones: Optional[dict] = None  # set by calibrate()
+
+    def _flat(self, key: str, images_u8: np.ndarray) -> torch.Tensor:
+        """uint8 ``(..., H, W, 3)`` -> stream ``key``'s flat fp32 images."""
+        x = _prep(images_u8, self.sizes[key], self.device)
+        return x.reshape((-1,) + tuple(x.shape[-3:]))
+
+    def _calibrate_on(self, xs: dict, refine_passes: int) -> None:
+        """Fit each stream on its flat images ``xs[stream]``; the refinement
+        fits in IEEE fp32 whatever the compute dtype, as the Xception
+        engines' does (ROADMAP Queue 3, F3)."""
+        qb = {}
+        for key, fp in self.fp_trees.items():
+            amaxes = calibrate_resnet18_amax(fp, xs[key], compute_dtype=self.compute_dtype)
+            qb[key] = quantize_folded_resnet18(fp, amaxes)
+            if refine_passes:
+                with ieee_fp32():
+                    qb[key] = refine_quantized_resnet18(qb[key], fp, xs[key],
+                                                        passes=refine_passes,
+                                                        compute_dtype=torch.float32)
+        self.qbackbones = qb
+
+    def _features(self, key: str, flat: torch.Tensor) -> torch.Tensor:
+        if self.qbackbones is not None:
+            return resnet18_quant_walk(self.qbackbones[key], flat, quant=True,
+                                       compute_dtype=self.compute_dtype)
+        return getattr(self.model, key)(flat, self.compute_dtype)
+
+    def _backbone_fns(self) -> dict:
+        """The ``*backbone_fn`` overrides of the model's apply: the int8 trees
+        once calibrated, else none (the model's own eval ResNet-18s)."""
+        if self.qbackbones is None:
+            return {}
+        return {f"{key}_fn": functools.partial(self._features, key) for key in self.sizes}
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def features(self, key: str, images_u8: np.ndarray) -> torch.Tensor:
+        """uint8 images ``(..., H, W, 3)`` -> per-image ResNet-18 features
+        ``(N, 512)`` of stream ``key`` (a backbone attribute of the model) in
+        the compute dtype: the path :meth:`score` takes. A quantized scorer
+        must be calibrated first."""
+        if self.quantize is not None and self.qbackbones is None:
+            raise ValueError("calibrate() the quantized scorer before asking for its features")
+        return self._features(key, self._flat(key, images_u8))
+
+
+class AUFaceScorer(_ResNetScorer):
+    """Cross-modal AU + face scoring (``AUFaceDetector``) on raw uint8 inputs,
+    with the model's own logit head: ``sigmoid(logits[:, 0])``."""
+
+    @classmethod
+    def from_bundle(cls, path: str, lstm_hidden: int = 256, **kw) -> "AUFaceScorer":
+        """Build from a ``train_au_face`` bundle (:func:`load_au_face_bundle`)."""
+        return cls(load_au_face_bundle(path, lstm_hidden), **kw)
+
+    def __init__(
+        self,
+        model: AUFaceDetector,
+        *,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        frame_size: Optional[Tuple[int, int]] = None,
+        patch_size: Optional[Tuple[int, int]] = None,
+        buckets: Optional[Sequence[int]] = None,
+        quantize: Optional[str] = None,
+        device="cuda",
+    ):
+        """``buckets``: both time axes pad up to a bucket, and their true
+        lengths gate the biLSTMs, the cross-attention keys and the pools, so
+        the scores equal the unbucketed ones. ``quantize``: None or
+        ``"w8a8"``."""
+        super().__init__(model, {"face_backbone": frame_size, "au_backbone": patch_size},
+                         compute_dtype=compute_dtype, quantize=quantize, device=device)
+        self.buckets = tuple(sorted(buckets)) if buckets else None
+
+    @_ieee_fp32
+    def calibrate(self, videos_u8: np.ndarray, au_patches_u8: np.ndarray, *,
+                  refine_passes: int = 0) -> None:
+        """Fit the w8a8 face and AU ResNet-18s on a representative batch
+        (no-op when ``quantize=None``); ``refine_passes > 0`` adds the affine
+        refinement of both streams on the same batch."""
+        if self.quantize is None:
+            return
+        with torch.inference_mode():
+            xs = {"face_backbone": self._flat("face_backbone", np.asarray(videos_u8)),
+                  "au_backbone": self._flat("au_backbone", np.asarray(au_patches_u8))}
+        self._calibrate_on(xs, refine_passes)
+
+    def _forward(self, videos_u8, au_patches_u8, au_mask, au_weight):
+        """The bucketed forward -> ``(logits, v_tokens, au_tokens, T, Ta)``."""
+        if self.quantize is not None and self.qbackbones is None:
+            self.calibrate(videos_u8, au_patches_u8)  # implicit first-batch calibration
+        B, T = videos_u8.shape[:2]
+        Ta, A = au_patches_u8.shape[1:3]
+        if au_mask is None:
+            au_mask = np.ones((B, Ta, A), np.float32)
+        if au_weight is None:
+            au_weight = np.ones((B, Ta, A), np.float32)
+        if self.buckets:
+            Tb, Tab = bucket_length(T, self.buckets), bucket_length(Ta, self.buckets)
+            videos_u8, au_patches_u8 = _pad_time(videos_u8, Tb), _pad_time(au_patches_u8, Tab)
+            au_mask, au_weight = _pad_time(au_mask, Tab), _pad_time(au_weight, Tab)
+            T, Ta = min(T, Tb), min(Ta, Tab)
+        tensor = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        out = au_face_detector_apply(
+            self.model, _prep(videos_u8, self.sizes["face_backbone"], self.device),
+            _prep(au_patches_u8, self.sizes["au_backbone"], self.device), tensor(au_mask),
+            tensor(au_weight), v_valid=T, au_valid=Ta, compute_dtype=self.compute_dtype,
+            **self._backbone_fns())
+        return out + (T, Ta)
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def score(self, videos_u8: np.ndarray, au_patches_u8: np.ndarray,
+              au_mask: Optional[np.ndarray] = None,
+              au_weight: Optional[np.ndarray] = None) -> np.ndarray:
+        """``videos_u8 (B, T, H, W, 3)`` and ``au_patches_u8 (B, Ta, A, h, w, 3)``
+        uint8, ``au_mask`` / ``au_weight (B, Ta, A)`` (ones by default) -> fake
+        probabilities ``(B,)``."""
+        logits = self._forward(videos_u8, au_patches_u8, au_mask, au_weight)[0]
+        return torch.sigmoid(logits[:, 0].float()).cpu().numpy()
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def embed(self, videos_u8: np.ndarray, au_patches_u8: np.ndarray,
+              au_mask: Optional[np.ndarray] = None,
+              au_weight: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The pooled embedding the head reads: the fp32 masked means of both
+        token streams, concatenated, ``(B, 4 * lstm_hidden)``."""
+        _, v_tokens, au_tokens, T, Ta = self._forward(videos_u8, au_patches_u8, au_mask,
+                                                      au_weight)
+        return torch.cat([masked_mean(v_tokens, T), masked_mean(au_tokens, Ta)], dim=-1)
+
+
+class AUPatchScorer(_ResNetScorer):
+    """AU-patch ResNet-LSTM scoring (``AUPatchClassifier``) on raw uint8 patch
+    stacks: ``sigmoid(logits[:, 0])``.
+
+    The default ``mask_padding=True`` is the quality mode; the reference's
+    pad-consuming forward for ``lengths < T`` is ``mask_padding=False``."""
+
+    @classmethod
+    def from_bundle(cls, path: str, hidden_dim: int = 128, lstm_hidden: int = 128,
+                    **kw) -> "AUPatchScorer":
+        """Build from a ``train_au_patch`` bundle (:func:`load_au_patch_bundle`)."""
+        return cls(load_au_patch_bundle(path, hidden_dim, lstm_hidden), **kw)
+
+    def __init__(
+        self,
+        model: AUPatchClassifier,
+        *,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        patch_size: Optional[Tuple[int, int]] = None,
+        mask_padding: bool = True,
+        buckets: Optional[Sequence[int]] = None,
+        quantize: Optional[str] = None,
+        device="cuda",
+    ):
+        """``buckets``: the time axis pads up to a bucket, ``lengths`` gates
+        the biLSTM, so the scores equal the unbucketed ones. ``quantize``:
+        None or ``"w8a8"``."""
+        super().__init__(model, {"backbone": patch_size}, compute_dtype=compute_dtype,
+                         quantize=quantize, device=device)
+        self.mask_padding = mask_padding
+        self.buckets = tuple(sorted(buckets)) if buckets else None
+
+    @_ieee_fp32
+    def calibrate(self, patches_u8: np.ndarray, *, refine_passes: int = 0) -> None:
+        """Fit the w8a8 ResNet-18 on a representative patch batch (no-op when
+        ``quantize=None``); ``refine_passes > 0`` adds the affine refinement."""
+        if self.quantize is None:
+            return
+        with torch.inference_mode():
+            x = self._flat("backbone", np.asarray(patches_u8))
+        self._calibrate_on({"backbone": x}, refine_passes)
+
+    def _forward(self, patches_u8, au_weights, lengths, return_pooled):
+        if self.quantize is not None and self.qbackbones is None:
+            self.calibrate(patches_u8)  # implicit first-batch calibration
+        B, T, A = patches_u8.shape[:3]
+        if au_weights is None:
+            au_weights = np.ones((B, T, A), np.float32)
+        if lengths is None:
+            lengths = np.full((B,), T, np.int64)
+        if self.buckets:
+            Tb = bucket_length(T, self.buckets)
+            patches_u8, au_weights = _pad_time(patches_u8, Tb), _pad_time(au_weights, Tb)
+            lengths = np.minimum(lengths, Tb)
+        return au_patch_classifier_apply(
+            self.model, _prep(patches_u8, self.sizes["backbone"], self.device),
+            torch.as_tensor(np.asarray(au_weights, np.float32), device=self.device),
+            lengths=torch.as_tensor(np.asarray(lengths), dtype=torch.long, device=self.device),
+            mask_padding=self.mask_padding, compute_dtype=self.compute_dtype,
+            return_pooled=return_pooled, **self._backbone_fns())
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def score(self, patches_u8: np.ndarray, au_weights: Optional[np.ndarray] = None,
+              lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """``patches_u8 (B, T, A, h, w, 3)`` uint8, ``au_weights (B, T, A)``
+        (ones by default), ``lengths (B,)`` (T by default) -> fake
+        probabilities ``(B,)``."""
+        logits = self._forward(patches_u8, au_weights, lengths, False)
+        return torch.sigmoid(logits[:, 0].float()).cpu().numpy()
+
+    @_ieee_fp32
+    @torch.inference_mode()
+    def embed(self, patches_u8: np.ndarray, au_weights: Optional[np.ndarray] = None,
+              lengths: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The fp32 pooled embedding before the classifier, ``(B, 2 * lstm_hidden)``."""
+        return self._forward(patches_u8, au_weights, lengths, True)

@@ -85,6 +85,15 @@ def linear(
     return F.linear(x, w, b)
 
 
+def dense(layer: "Linear", x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+          ) -> torch.Tensor:
+    """``x @ w.T`` then ``+ b`` in the compute dtype: two roundings, as the
+    JAX ``linear`` (a dot, then the bias add); :func:`linear` is one fused
+    ``addmm``."""
+    dtype = compute_dtype or torch.promote_types(x.dtype, layer.w.dtype)
+    return x.to(dtype) @ layer.w.to(dtype).T + layer.b.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Parameter holders
 # ---------------------------------------------------------------------------

@@ -20,8 +20,18 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..models.au_face import AUFaceDetector
 from ..models.heads import ArcFace, XceptionLSTM
-from ..models.quant import ConvNode, QuantBlock, QuantizedXception, SepNode
+from ..models.quant import (
+    ConvNode,
+    QuantBlock,
+    QuantizedResNet18,
+    QuantizedXception,
+    ResBlockNode,
+    SepNode,
+)
+from ..models.resnet import RESNET18_STAGES, ResNet18
+from ..models.resnet_lstm import AUPatchClassifier
 from ..models.xception import XCEPTION_BLOCK_SPECS, Xception
 
 _TO_TORCH = {
@@ -75,10 +85,53 @@ def _xception_leaves(m: Xception, p: tuple = ()) -> Iterator[Leaf]:
         yield from _linear_leaves(p + ("fc",), m.fc)
 
 
+def _lstm_leaves(path, lstm) -> Iterator[Leaf]:
+    for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        yield "params", path + (name,), getattr(lstm, name), "plain"
+
+
+def _bilstm_leaves(path, bilstm) -> Iterator[Leaf]:
+    yield from _lstm_leaves(path + ("fwd",), bilstm.fwd)
+    yield from _lstm_leaves(path + ("bwd",), bilstm.bwd)
+
+
+def _resnet18_leaves(m: ResNet18, p: tuple) -> Iterator[Leaf]:
+    yield "params", p + ("conv1", "w"), m.conv1, "conv"
+    yield from _bn_leaves(p + ("bn1",), m.bn1)
+    for i, stage in enumerate(m.stages):
+        for b, blk in enumerate(stage):
+            q = p + ("stages", i, b)
+            yield "params", q + ("conv1", "w"), blk.conv1, "conv"
+            yield from _bn_leaves(q + ("bn1",), blk.bn1)
+            yield "params", q + ("conv2", "w"), blk.conv2, "conv"
+            yield from _bn_leaves(q + ("bn2",), blk.bn2)
+            if blk.downsample is not None:
+                yield "params", q + ("downsample", "conv", "w"), blk.downsample.conv, "conv"
+                yield from _bn_leaves(q + ("downsample", "bn"), blk.downsample.bn)
+
+
+def _au_patch_leaves(m: AUPatchClassifier) -> Iterator[Leaf]:
+    yield from _resnet18_leaves(m.backbone, ("backbone",))
+    yield from _linear_leaves(("au_fc",), m.au_fc)
+    yield from _linear_leaves(("attn",), m.attn)
+    yield from _bilstm_leaves(("lstm",), m.lstm)
+    yield from _linear_leaves(("classifier",), m.classifier)
+
+
+def _au_face_leaves(m: AUFaceDetector) -> Iterator[Leaf]:
+    yield from _resnet18_leaves(m.face_backbone, ("face_backbone",))
+    yield from _resnet18_leaves(m.au_backbone, ("au_backbone",))
+    for name in ("face_proj", "au_proj", "au_attn"):
+        yield from _linear_leaves((name,), getattr(m, name))
+    yield from _bilstm_leaves(("face_lstm",), m.face_lstm)
+    yield from _bilstm_leaves(("au_lstm",), m.au_lstm)
+    for name in ("cross_q_face", "cross_q_au", "head_fc1", "head_fc2"):
+        yield from _linear_leaves((name,), getattr(m, name))
+
+
 def _xception_lstm_leaves(m: XceptionLSTM) -> Iterator[Leaf]:
     yield from _xception_leaves(m.backbone, ("backbone",))
-    for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
-        yield "params", ("lstm", name), getattr(m.lstm, name), "plain"
+    yield from _lstm_leaves(("lstm",), m.lstm)
     for i, lin in enumerate(m.fc_layers):
         yield from _linear_leaves(("fc_layers", i), lin)
     yield from _linear_leaves(("fc_out",), m.fc_out)
@@ -150,6 +203,31 @@ def arcface_from_jax(params) -> ArcFace:
     return model
 
 
+def au_patch_to_jax(model: AUPatchClassifier) -> Tuple[Dict, Dict]:
+    """-> (params, state) with ``state = {"backbone": ...}``, as
+    ``au_patch_classifier_init``."""
+    return _export(_au_patch_leaves(model))
+
+
+def au_patch_from_jax(params, state) -> AUPatchClassifier:
+    model = AUPatchClassifier(np.shape(params["au_fc"]["w"])[1],
+                              np.shape(params["lstm"]["fwd"]["w_hh"])[0])
+    _import(_au_patch_leaves(model), params, state)
+    return model
+
+
+def au_face_to_jax(model: AUFaceDetector) -> Tuple[Dict, Dict]:
+    """-> (params, state) with ``state = {"face_backbone", "au_backbone"}``, as
+    ``au_face_detector_init``."""
+    return _export(_au_face_leaves(model))
+
+
+def au_face_from_jax(params, state) -> AUFaceDetector:
+    model = AUFaceDetector(np.shape(params["face_lstm"]["fwd"]["w_hh"])[0])
+    _import(_au_face_leaves(model), params, state)
+    return model
+
+
 # ---------------------------------------------------------------------------
 # Folded and w8a8 trees (models/quant.py): nodes {w [, b]} or
 # {w_q, s_w, s_in [, s_dq] [, b]}; w and w_q are conv weights (HWIO <-> OIHW,
@@ -203,3 +281,26 @@ def quantized_xception_to_jax(tree: QuantizedXception) -> Dict:
         out["fc"] = {"w": np.ascontiguousarray(tree.fc_w.detach().cpu().numpy().T),
                      "b": tree.fc_b.detach().cpu().numpy()}
     return out
+
+
+def quantized_resnet18_from_jax(qtree) -> QuantizedResNet18:
+    """A JAX ``quantize_folded_resnet18`` tree (or a ``fold_resnet18_bn`` one,
+    all fp) -> :class:`QuantizedResNet18`."""
+    stages = [[ResBlockNode(stride if b == 0 else 1, _node_from_jax(bp["conv1"]),
+                            _node_from_jax(bp["conv2"]),
+                            _node_from_jax(bp["downsample"]) if "downsample" in bp else None)
+               for b, bp in enumerate(stage)]
+              for (_, stride), stage in zip(RESNET18_STAGES, qtree["stages"])]
+    return QuantizedResNet18(_node_from_jax(qtree["conv1"]), stages)
+
+
+def quantized_resnet18_to_jax(tree: QuantizedResNet18) -> Dict:
+    """:class:`QuantizedResNet18` -> the JAX tree layout, numpy leaves."""
+    def block(blk):
+        out = {"conv1": _node_to_jax(blk.conv1), "conv2": _node_to_jax(blk.conv2)}
+        if blk.downsample is not None:
+            out["downsample"] = _node_to_jax(blk.downsample)
+        return out
+
+    return {"conv1": _node_to_jax(tree.conv1),
+            "stages": [[block(blk) for blk in stage] for stage in tree.stages]}

@@ -102,5 +102,5 @@ def test_cli_av_refusals(inputs):
         tcli.main(base, log=lambda s: None)
     with pytest.raises(ValueError, match="--audio_input"):
         tcli.main(base + ["--audio_ckpt_path", str(inputs / "audio.npz")], log=lambda s: None)
-    with pytest.raises(ValueError, match="not ported"):
-        tcli.build_engine(tcli.parse_config(["--engine", "au_face", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="unknown engine"):
+        tcli.build_engine(tcli.parse_config(["--engine", "daemon", "--device", "cpu"]))

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_deepfake_detection_tpu_torch.core.checkpoint import save_bundle
+from multimodal_deepfake_detection_tpu_torch.models.au_face import AUFaceDetector
 from multimodal_deepfake_detection_tpu_torch.models.heads import XceptionLSTM
+from multimodal_deepfake_detection_tpu_torch.models.resnet_lstm import AUPatchClassifier
 from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import _build
 from multimodal_deepfake_detection_tpu_torch.ops.kernels import dw_w8a8 as dw_w8a8_mod
@@ -29,6 +32,10 @@ from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block import (
 )
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8 import middle_block_w8
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.sepconv_unit import sepconv_unit
+from multimodal_deepfake_detection_tpu_torch.utils.jax_weights import (
+    au_face_to_jax,
+    au_patch_to_jax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,6 +51,12 @@ class _Block:
 sys.meta_path.insert(0, _Block())
 import multimodal_deepfake_detection_tpu_torch.models.serve
 import multimodal_deepfake_detection_tpu_torch.cli.serve
+import multimodal_deepfake_detection_tpu_torch.models.resnet
+import multimodal_deepfake_detection_tpu_torch.models.resnet_lstm
+import multimodal_deepfake_detection_tpu_torch.models.au_face
+import multimodal_deepfake_detection_tpu_torch.models.fold
+import multimodal_deepfake_detection_tpu_torch.ops.lstm
+import multimodal_deepfake_detection_tpu_torch.utils.jax_weights
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.middle_block_w8
 import multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8
@@ -56,6 +69,10 @@ import multimodal_deepfake_detection_tpu_torch.models.heads
 import multimodal_deepfake_detection_tpu_torch.ops.mfcc
 import multimodal_deepfake_detection_tpu_torch.core.precision
 import chip_smoke
+from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
+for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
+    build_engine(Config(engine=engine, ckpt_path=sys.argv[1] + "/" + engine + ".npz",
+                        device="cpu", lstm_hidden=4, patch_hidden=8, patch_lstm_hidden=4))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
 assert not loaded, loaded
@@ -63,10 +80,17 @@ print("ok")
 """
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax(tmp_path):
+    """Every module of the port imports, and the AU engines of its CLI build
+    from bundles, with JAX blocked."""
+    g = torch.Generator().manual_seed(0)
+    save_bundle(str(tmp_path / "au_face.npz"),
+                dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))
+    save_bundle(str(tmp_path / "au_patch.npz"), dict(zip(("model", "state"), au_patch_to_jax(
+        AUPatchClassifier(8, 4, generator=g)))))
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 

@@ -12,14 +12,25 @@ depthwise) are scored through the routes against their plain paths, and
 the fp32 scorer is held to the CPU's IEEE fp32 with torch's default TF32
 flags left in force. Every kernel also runs at the audio path's shapes
 (6,464 MFCC images of 64^2, 64 one-second clips), and the audio engine's
-kernel paths are held against its plain paths.
+kernel paths are held against its plain paths. The AU engines, which run
+no kernel of the port's own, are held in bf16 against their plain fp32
+path on the card (per-image features and the pooled embedding cos >= 0.999,
+scores within 2e-2), and in fp32 against the CPU (rtol 1e-3 / atol 2e-4,
+scores atol 1e-4).
 """
 import numpy as np
 import pytest
 import torch
 
+from multimodal_deepfake_detection_tpu_torch.models.au_face import AUFaceDetector
 from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
-from multimodal_deepfake_detection_tpu_torch.models.serve import AudioScorer, VisualScorer
+from multimodal_deepfake_detection_tpu_torch.models.resnet_lstm import AUPatchClassifier
+from multimodal_deepfake_detection_tpu_torch.models.serve import (
+    AudioScorer,
+    AUFaceScorer,
+    AUPatchScorer,
+    VisualScorer,
+)
 from multimodal_deepfake_detection_tpu_torch.ops.conv import BatchNorm
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.dw_w8a8 import dw_w8a8, dw_w8a8_ref
 from multimodal_deepfake_detection_tpu_torch.ops.kernels.entry_block import (
@@ -555,3 +566,54 @@ def test_audio_scorer_kernel_paths_match_plain(cuda, path):
     torch.cuda.synchronize()
     assert counter.launches == before + 2 * per_call  # score and frame_features
     _held(got, outputs(plain), *bars)
+
+
+def _au_scorers(engine, seed=5):
+    """A seeded full-width AU model with random BN statistics -> a scorer
+    factory, the ``score`` inputs and the stream keys: 2 clips of 3 frames of
+    112^2 and 3 x 4 AU patches of 64^2."""
+    g = torch.Generator().manual_seed(seed)
+    model = AUPatchClassifier(generator=g) if engine == "au_patch" else AUFaceDetector(
+        generator=g)
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
+            n = bn.mean.shape[0]
+            bn.scale.copy_(0.8 + 0.4 * torch.rand(n, generator=g))
+            bn.bias.copy_(0.05 * torch.randn(n, generator=g))
+            bn.mean.copy_(0.1 * torch.randn(n, generator=g))
+            bn.var.copy_(0.5 + torch.rand(n, generator=g))
+    rng = np.random.default_rng(seed)
+    patches = rng.integers(0, 256, (2, 3, 4, 64, 64, 3), dtype=np.uint8)
+    if engine == "au_patch":
+        return (lambda **kw: AUPatchScorer(model, **kw)), (patches,), {"backbone": patches}
+    videos = rng.integers(0, 256, (2, 3, 112, 112, 3), dtype=np.uint8)
+    return ((lambda **kw: AUFaceScorer(model, **kw)), (videos, patches),
+            {"face_backbone": videos, "au_backbone": patches})
+
+
+def _au_outputs(scorer, args, streams):
+    """Scores, per-image features of every stream and the pooled embedding."""
+    feats = torch.cat([scorer.features(k, u8).double().cpu() for k, u8 in streams.items()])
+    return scorer.score(*args), feats, scorer.embed(*args).double().cpu()
+
+
+@pytest.mark.parametrize("engine", ["au_patch", "au_face"])
+def test_au_scorer_bf16_matches_plain_fp32(cuda, engine):
+    make, args, streams = _au_scorers(engine)
+    got = _au_outputs(make(device=cuda), args, streams)
+    ref = _au_outputs(make(device=cuda, compute_dtype=torch.float32), args, streams)
+    _held(got[:2], ref[:2], 0.999, 2e-2)
+    cos = torch.nn.functional.cosine_similarity(got[2], ref[2], dim=-1).min().item()
+    assert cos >= 0.999
+
+
+@pytest.mark.parametrize("engine", ["au_patch", "au_face"])
+def test_au_fp32_scorer_is_ieee_under_default_flags(cuda_default_flags, engine):
+    make, args, streams = _au_scorers(engine)
+    got = _au_outputs(make(device=cuda_default_flags, compute_dtype=torch.float32), args,
+                      streams)
+    assert torch.backends.cudnn.allow_tf32
+    ref = _au_outputs(make(device="cpu", compute_dtype=torch.float32), args, streams)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(got[0], ref[0], atol=1e-4)
