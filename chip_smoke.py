@@ -74,7 +74,21 @@ raises and exits non-zero:
    calibration no further from plain fp32 than the unrefined; the card's
    fp32 scorer against the CPU's on a small input; then ``score()`` of 8
    clips x 16 frames, bf16 and w8a8 in turns (clips/s, frames/s), the
-   batch's pageable H2D copy alone, and one profile per engine and mode.
+   batch's pageable H2D copy alone, and one profile per engine and mode;
+8. visual training (``cli/train_visual.py``), which runs no kernel of the
+   port's own (the JAX trainer runs its live-BN Xception on XLA convs): one
+   SGD step at full width (B=2, T=2, 64^2) on the card (TF32 off) and on the
+   CPU from the same weights, in fp32 and in fp64, loss, running statistics
+   and post-step deltas held, each with a control (``torch.var``'s two-pass
+   unbiased variance in the BN) that must fail; bf16 against fp32 gradients per top-level
+   subtree at 224^2, with a control (the backbone's BN on running
+   statistics); the CLI's step at its defaults (B=4 x T=50 at 224^2, bf16),
+   frozen and unfrozen: ms a step, frames/s, peak memory, idle share and a
+   profile; 25 Adam steps on one batch, whose loss must fall, and the lr = 0
+   control, whose loss must not; then the CLI trains a synthetic tree for 2
+   epochs, plain and from the feature cache, and each best bundle is scored
+   through ``cli/serve.py --engine visual`` (BN-folded, bf16, K1 counted)
+   against the trainer's eval probabilities of the best epoch.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
@@ -2028,6 +2042,386 @@ def au_profile(torch, engine: str, scorers: dict, args, copy_ms: float, smi: str
                 f"x{e.count:<5d} {e.key[:200]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: visual training (cli/train_visual.py). No TPU kernel lies on it:
+# the JAX trainer runs the live-BN Xception on XLA convs; here cuDNN, cuBLAS
+# and autograd.
+# ---------------------------------------------------------------------------
+
+TRAIN_HIDDEN = 128
+TRAIN_CPU = (2, 2, 64)  # B, T, H = W of the one SGD step on the card and on the CPU
+TRAIN_SGD_LR = 0.05
+TRAIN_CLIP = 1.0  # the CLI's clip
+# card against CPU, fp32 (IEEE on both): the loss's relative |d|, each running
+# statistic's max |d| over its tensor's largest, every parameter's post-step
+# delta's max |d| over the largest delta of all (the global delta). Sound
+# 1.71e-6, 3.44e-6, 8.35e-5 here; at tests/test_torch_train_gpu.py's weights
+# the deltas read 3.63e-2 (fp32 roundoff of the card's weight gradients: its
+# fp64 step there passes the fp64 bars). The control (torch.var's two-pass
+# unbiased variance in the BN) 2.87e-3, 3.16e-2, 0.377 (H100 80GB HBM3, 700 W)
+TRAIN_CPU_BARS = {"loss": 1e-5, "stats": 1e-4, "deltas": 1e-1}
+# the same step in fp64 on both: the port's train step is the same function
+# on the card, to roundoff
+TRAIN_CPU_BARS_FP64 = {"loss": 1e-12, "stats": 1e-10, "deltas": 1e-9}
+TRAIN_STEP = (4, 50, 224)  # the CLI defaults: batch 4, the 50-frame bucket, 224^2
+TRAIN_TIMED_STEPS = 5
+TRAIN_GRAD = (2, 8, 224)  # bf16 against fp32 gradients
+# min cosine over the top-level subtrees: sound 1 - cos <= 0.2265 (the backbone;
+# the JAX package's bf16 backbone gradient is as far from its fp32 one), the
+# control (the backbone's BN on running statistics) >= 0.9898 (H100, 700 W)
+TRAIN_GRAD_COS_MIN = 0.5
+OVERFIT = dict(batch=(4, 4, 112), steps=25, lr=1e-4, fall=0.3)
+TRAIN_TREE = dict(n_per_class=4, frames=8, size=224)
+
+
+class _Patched:
+    """``setattr(obj, name, value)`` for the ``with`` block: a control's
+    wrong piece put in the program's place."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.before = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.before)
+
+
+def bn_two_pass_unbiased(torch):
+    """The control's BN: ``torch.var``'s two-pass, unbiased variance (its
+    default) in the normalisation, in place of the single-pass biased one."""
+    from multimodal_deepfake_detection_tpu_torch.core.precision import at_least_f32
+
+    def batch_norm_train(x, scale, bias, eps: float = 1e-5):
+        xf = at_least_f32(x)
+        dims = tuple(range(x.ndim - 1))
+        mean, var = xf.mean(dim=dims), xf.var(dim=dims)
+        out = (xf - mean) * (torch.rsqrt(var + eps) * scale) + bias
+        return out.to(x.dtype), mean.detach(), var.detach()
+    return batch_norm_train
+
+
+def train_batch(B, T, H, seed, lengths=None):
+    rng = np.random.default_rng(seed)
+    video = rng.random((B, T, H, H, 3), dtype=np.float32)
+    labels = (np.arange(B) % 2).astype(np.float32)
+    lengths = np.full((B,), T, np.int32) if lengths is None else np.asarray(lengths, np.int32)
+    return video, labels, lengths
+
+
+def train_model(torch, seed: int):
+    from multimodal_deepfake_detection_tpu_torch.models.heads import XceptionLSTMArcFace
+
+    return XceptionLSTMArcFace(TRAIN_HIDDEN, generator=torch.Generator().manual_seed(seed))
+
+
+def loss_forward_of(torch, cdtype, bb_eval: bool = False):
+    from multimodal_deepfake_detection_tpu_torch.cli import train_visual as tv
+
+    forward = tv.make_forward(tv.Config(), cdtype)
+
+    def loss_forward(model, rng_seed, batch):
+        loss, bn_stats, probs = forward(model, batch, True, bb_eval)
+        return loss, (bn_stats, probs)
+    return loss_forward
+
+
+def sgd_step(torch, state_dict, batch, device, dtype=None):
+    """One SGD step (the CLI's forward and clip, make_train_step) in IEEE
+    fp32, or in ``dtype``, from ``state_dict``: the loss, post-step
+    parameters and buffers."""
+    from multimodal_deepfake_detection_tpu_torch.cli.train_visual import to_device
+    from multimodal_deepfake_detection_tpu_torch.core.precision import ieee_fp32
+    from multimodal_deepfake_detection_tpu_torch.train import TrainState
+    from multimodal_deepfake_detection_tpu_torch.train.optim import Optimizer
+    from multimodal_deepfake_detection_tpu_torch.train.steps import make_train_step
+
+    dtype = dtype or torch.float32
+    model = train_model(torch, 0)
+    model.load_state_dict(state_dict)
+    model.to(device, dtype)
+    opt = Optimizer(torch.optim.SGD(model.parameters(), lr=TRAIN_SGD_LR), grad_clip=TRAIN_CLIP)
+    video, labels, lengths = to_device(batch, torch.device(device))
+    with ieee_fp32():
+        _, loss, _ = make_train_step(loss_forward_of(torch, dtype))(
+            TrainState(0, model, opt), (video.to(dtype), labels, lengths), 0)
+    snap = lambda named: {n: t.detach().double().cpu() for n, t in named}
+    return float(loss), snap(model.named_parameters()), snap(model.named_buffers())
+
+
+def step_errors(ref, got, p0) -> dict:
+    """Loss relative |d|; running statistics max |d| over each tensor's
+    largest; post-step deltas max |d| over the largest delta of all."""
+    d_ref = {n: ref[1][n] - p0[n] for n in p0}
+    d_got = {n: got[1][n] - p0[n] for n in p0}
+    global_delta = max(d.abs().max().item() for d in d_ref.values())
+    return {
+        "loss": abs(got[0] - ref[0]) / abs(ref[0]),
+        "stats": max(((got[2][n] - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                     for n, b in ref[2].items()),
+        "deltas": max((d_got[n] - d_ref[n]).abs().max().item() for n in p0) / global_delta,
+        "clipped_norm": float(np.sqrt(sum((d ** 2).sum().item() for d in d_ref.values()))
+                              / TRAIN_SGD_LR),
+    }
+
+
+def train_card_vs_cpu(torch, smi: str) -> None:
+    """Phase 8a: one SGD step at full width on the card and on the CPU from
+    the same weights, in fp32 (TF32 off on the card) and in fp64, each with
+    its control."""
+    from multimodal_deepfake_detection_tpu_torch.ops import conv as conv_mod
+    from multimodal_deepfake_detection_tpu_torch.train import optim as optim_mod
+
+    B, T, H = TRAIN_CPU
+    batch = train_batch(B, T, H, 80, lengths=(T,) + (1,) * (B - 1))
+    model = train_model(torch, 80)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    p0 = {n: p.detach().double() for n, p in model.named_parameters()}
+    runs = {}
+    for dtype, bars in ((torch.float32, TRAIN_CPU_BARS), (torch.float64, TRAIN_CPU_BARS_FP64)):
+        name = str(dtype).split(".")[-1]
+        cpu = sgd_step(torch, sd, batch, "cpu", dtype)
+        card = sgd_step(torch, sd, batch, "cuda", dtype)
+        runs[name] = cpu, card
+        err = step_errors(cpu, card, p0)
+        say(f"train step {name}, card vs CPU (B={B} T={T} {H}^2, hidden {TRAIN_HIDDEN}, SGD "
+            f"{TRAIN_SGD_LR}, clip {TRAIN_CLIP}: clipped grad norm {err['clipped_norm']:.4f}): "
+            f"loss rel |d| {err['loss']:.3e} (<= {bars['loss']:.0e}); running stats "
+            f"{err['stats']:.3e} (<= {bars['stats']:.0e}); deltas over the global delta "
+            f"{err['deltas']:.3e} (<= {bars['deltas']:.0e}) [{smi}]")
+        with _Patched(conv_mod, "batch_norm_train", bn_two_pass_unbiased(torch)):
+            ctl = step_errors(cpu, sgd_step(torch, sd, batch, "cuda", dtype), p0)
+        failed = any(ctl[k] > bars[k] for k in bars)
+        say(f"control {name}, BN with torch.var's two-pass unbiased variance, card vs CPU: "
+            f"loss {ctl['loss']:.3e}, running stats {ctl['stats']:.3e}, deltas "
+            f"{ctl['deltas']:.3e}" + ("; control: fails, as it must" if failed
+                                      else "; control: PASSES"))
+        if any(err[k] > bars[k] for k in bars):
+            raise AssertionError(f"the card's {name} train step differs from the CPU's: {err}")
+        if not failed:
+            raise AssertionError(f"the BN-variance control passes the {name} bars")
+        if dtype == torch.float32:
+            cpu32, err32 = cpu, err
+    say(f"reading, fp32 against the CPU's fp64 step, deltas over the global delta: the CPU's "
+        f"{step_errors(runs['float64'][0], runs['float32'][0], p0)['deltas']:.3e}, the "
+        f"card's {step_errors(runs['float64'][0], runs['float32'][1], p0)['deltas']:.3e}")
+
+    def torch_clip(grads, max_norm):  # clip_grad_norm_'s arithmetic
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        torch._foreach_mul_(grads, (max_norm / (norm + 1e-6)).clamp(max=1.0))
+
+    with _Patched(optim_mod, "clip_by_global_norm_", torch_clip):
+        rd = step_errors(cpu32, sgd_step(torch, sd, batch, "cuda"), p0)
+    say(f"reading, torch's clip_grad_norm_ arithmetic (norm + 1e-6) on the card vs the optax "
+        f"clip on the CPU, fp32: deltas {rd['deltas']:.3e} (a relative change of 1e-6 / "
+        f"{err32['clipped_norm']:.4f} in every delta when the clip binds)")
+
+
+def grads_by_subtree(torch, model, batch, cdtype, bb_eval: bool = False) -> dict:
+    from multimodal_deepfake_detection_tpu_torch.cli.train_visual import to_device
+    from multimodal_deepfake_detection_tpu_torch.core.precision import ieee_fp32
+
+    model.zero_grad(set_to_none=True)
+    with ieee_fp32():
+        loss, _ = loss_forward_of(torch, cdtype, bb_eval)(model, 0,
+                                                          to_device(batch, torch.device("cuda")))
+        loss.backward()
+    out = {}
+    for name, child in model.named_children():
+        gs = [p.grad.double().flatten() for p in child.parameters() if p.grad is not None]
+        if gs:
+            out[name] = torch.cat(gs)
+    return float(loss.detach()), out
+
+
+def train_grad_cos(torch, smi: str) -> None:
+    """bf16 gradients against fp32 on the same batch, per top-level subtree;
+    the control runs the backbone's BN on its running statistics (the
+    ``backbone_bn_eval`` mode) where training uses batch statistics."""
+    B, T, H = TRAIN_GRAD
+    batch = train_batch(B, T, H, 82)
+    model = train_model(torch, 82).cuda()
+    _, ref = grads_by_subtree(torch, model, batch, torch.float32)
+
+    def cos_of(got):
+        return {k: torch.nn.functional.cosine_similarity(got[k], ref[k], dim=0).item()
+                for k in ref}
+    _, g = grads_by_subtree(torch, model, batch, torch.bfloat16)
+    sound = cos_of(g)
+    _, g = grads_by_subtree(torch, model, batch, torch.bfloat16, bb_eval=True)
+    ctl = cos_of(g)
+    fmt = lambda c: ", ".join(f"{k} 1 - cos {1 - v:.3e}" for k, v in c.items())
+    say(f"train grads bf16 vs fp32 (B={B} T={T} {H}^2): {fmt(sound)} (<= "
+        f"{1 - TRAIN_GRAD_COS_MIN}) [{smi}]")
+    say(f"control, bf16 with the backbone's BN on its running statistics: {fmt(ctl)}"
+        + ("; control: fails, as it must" if min(ctl.values()) < TRAIN_GRAD_COS_MIN
+           else "; control: PASSES"))
+    if min(sound.values()) < TRAIN_GRAD_COS_MIN:
+        raise AssertionError(f"bf16 gradients far from fp32: {sound}")
+    if min(ctl.values()) >= TRAIN_GRAD_COS_MIN:
+        raise AssertionError("the bf16-statistics control passes the gradient bar")
+    del model
+    torch.cuda.empty_cache()
+
+
+class _Clips:
+    """A dataset of ``n`` zero clips, for ``train_visual.build`` (the timed
+    batches are made apart)."""
+
+    def __init__(self, n, shape):
+        self.n, self.shape, self.all_labels = n, shape, [i % 2 for i in range(n)]
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return np.zeros(self.shape, np.float32), self.all_labels[i]
+
+
+def train_times(torch, smi: str) -> None:
+    """Phase 8b: the CLI's train step at its defaults (bf16, Adam 1e-5, the
+    50-frame bucket), frozen and unfrozen, as the loop calls it (a host
+    batch, copied through pinned memory): ms a step and frames/s from CUDA
+    events, FLOPs counted by ``torch.utils.flop_counter``, peak memory, the
+    device idle share and the top device ops of one step."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_deepfake_detection_tpu_torch.cli import train_visual as tv
+
+    B, T, H = TRAIN_STEP
+    cfg = tv.Config(device="cuda")
+    clips = _Clips(B, (T, H, H, 3))
+    _, _, state, train_step, _ = tv.build(cfg, train_ds=clips, eval_ds=clips)
+    batch = train_batch(B, T, H, 81)
+    # FlopCounterMode counts a grouped conv's backward as a dense one, so only
+    # the forward is counted; a step is taken as 3 forwards unfrozen (data and
+    # weight gradients each about one), 1 frozen (no backbone backward)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        tv.make_forward(cfg, torch.bfloat16)(state.model, tv.to_device(batch, torch.device(
+            "cuda")), True)
+    fwd_flops = fc.get_total_flops()
+    say(f"train step at the CLI defaults: B={B} x T={T} at {H}^2, {cfg.compute_dtype}, "
+        f"hidden {cfg.hidden_dim}, Adam {cfg.lr} wd {cfg.weight_decay} clip {cfg.grad_clip}; "
+        f"the host batch {sum(a.nbytes for a in batch) / 1e6:.1f} MB float32; forward "
+        f"{fwd_flops / 1e12:.4f} TFLOP (FlopCounterMode)")
+    for phase, epoch in (("frozen", 0), ("unfrozen", cfg.freeze_epochs)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = lambda: train_step(state, batch, 0, epoch)
+        for _ in range(2):
+            _, loss, _ = run()
+        flops = fwd_flops * (1 if phase == "frozen" else 3)
+        ms = cuda_ms(torch, run, TRAIN_TIMED_STEPS)
+        _, loss, _ = run()
+        loss = float(loss)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        say(f"train step {phase}: {ms:.2f} ms a step ({B * T / ms * 1e3:.1f} frames/s), "
+            f"{flops / 1e12:.3f} TFLOP ({flops / (ms / 1e3) / PEAK_BF16:.4f} of "
+            f"989 TFLOP/s bf16), loss {loss:.4f}, peak memory {peak:.2f} GiB; profile: device "
+            f"busy {busy_ms:.2f} ms of {wall_ms:.2f} ms (idle share "
+            f"{1 - busy_ms / wall_ms:.3f}) [{smi}]")
+        for e in ops[:12]:
+            say(f"profile train {phase}:   {e.self_device_time_total / 1e3:8.3f} ms  "
+                f"x{e.count:<5d} {e.key[:160]}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {phase}: loss {loss}")
+    del state, train_step
+    torch.cuda.empty_cache()
+
+
+def train_overfit(torch, smi: str) -> None:
+    """Phase 8c: Adam on one fixed batch, unfrozen, bf16: the loss falls;
+    the control at lr = 0 does not."""
+    from multimodal_deepfake_detection_tpu_torch.cli.train_visual import to_device
+    from multimodal_deepfake_detection_tpu_torch.train import TrainState, make_optimizer
+    from multimodal_deepfake_detection_tpu_torch.train.steps import make_train_step
+
+    B, T, H = OVERFIT["batch"]
+    batch = to_device(train_batch(B, T, H, 83), torch.device("cuda"))
+    step = make_train_step(loss_forward_of(torch, torch.bfloat16))
+    falls = {}
+    for lr in (OVERFIT["lr"], 0.0):
+        model = train_model(torch, 83).cuda()
+        state = TrainState(0, model, make_optimizer(model.parameters(), "adam", lr,
+                                                    weight_decay=1e-4, grad_clip=1.0))
+        losses = [step(state, batch, i)[1] for i in range(OVERFIT["steps"])]
+        losses = [float(v) for v in losses]
+        falls[lr] = 1 - losses[-1] / losses[0]
+        say(f"overfit B={B} T={T} {H}^2, Adam lr {lr}, {OVERFIT['steps']} steps: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} (falls {falls[lr]:.3f}; bar >= "
+            f"{OVERFIT['fall']}) [{smi}]")
+    if falls[OVERFIT["lr"]] < OVERFIT["fall"]:
+        raise AssertionError("the loss did not fall on a fixed batch")
+    if falls[0.0] >= OVERFIT["fall"]:
+        raise AssertionError("control at lr = 0: the loss falls")
+    say("control, lr = 0: fails the bar, as it must")
+
+
+def train_then_serve(torch, workdir: str, smi: str) -> None:
+    """Phase 8d: the CLI trains a synthetic tree for 2 epochs (fp32, one
+    frozen), plain and from the feature cache; each best bundle is scored
+    through ``cli/serve.py --engine visual`` (BN-folded, bf16, K1 counted)
+    and held against the trainer's eval probabilities of the best epoch."""
+    from multimodal_deepfake_detection_tpu_torch.cli import train_visual as tv
+    from multimodal_deepfake_detection_tpu_torch.data.synthetic import make_face_npy_tree
+
+    tree = make_face_npy_tree(os.path.join(workdir, "train_faces"), seed=84, **TRAIN_TREE)
+    n_eval = 2 * TRAIN_TREE["n_per_class"]
+    calls = -(-n_eval // BATCH_SIZE)
+    for label, extra in (("plain", []), ("cache_features", ["--cache_features", "true",
+                                                            "--shuffle", "false"])):
+        ck = os.path.join(workdir, f"train_{label}")
+        logs = []
+        t0 = time.perf_counter()
+        history = tv.main(["--train_folder", f"{tree}/train", "--eval_folder", f"{tree}/eval",
+                           "--checkpoint_dir", ck, "--epochs", "2", "--freeze_epochs", "1",
+                           "--eval_with_margin", "false", "--compute_dtype", "float32",
+                           "--device", "cuda", *extra], log=logs.append)
+        secs = time.perf_counter() - t0
+        for line in logs:
+            say(f"train_visual {label}: {line}")
+        bundle = os.path.join(ck, tv.Config.bundle_name)
+        if not os.path.exists(bundle) or len(history) != 2:
+            raise AssertionError(f"train_visual {label}: no best bundle after 2 epochs")
+        saves = [i for i, line in enumerate(logs) if line.startswith("new best model saved")]
+        epochs = [i for i, line in enumerate(logs) if line.startswith("epoch ")]
+        best = next(k for k, i in enumerate(epochs) if i > saves[-1])
+        labels, probs = history[best].eval_scores
+        scores = run_cli(torch, workdir, visual_argv(bundle, f"{tree}/eval"),
+                         f"serve the {label} bundle", [], per_call(calls, k1=8), n_eval)
+        d = float(np.abs(scores - probs).max())
+        say(f"train_visual {label} ({secs:.1f} s, 2 epochs of {n_eval} clips x "
+            f"{TRAIN_TREE['frames']} frames at {TRAIN_TREE['size']}^2): the served bundle "
+            f"(folded, bf16, K1) vs the trainer's epoch-{best + 1} eval probs (unfolded, "
+            f"fp32): max|d| {d:.3e} (<= {SCORE_TOL:.0e}); probs {np.round(probs, 4).tolist()} "
+            f"[{smi}]")
+        if d > SCORE_TOL or len(probs) != n_eval:
+            raise AssertionError(f"the served {label} bundle disagrees with the trainer")
+
+
+def phase_train(torch, workdir: str, smi: str) -> None:
+    t_phase = time.perf_counter()
+    with NoTF32(torch):
+        train_card_vs_cpu(torch, smi)
+    train_grad_cos(torch, smi)
+    train_times(torch, smi)
+    train_overfit(torch, smi)
+    train_then_serve(torch, workdir, smi)
+    say(f"phase 8 (visual training) took {time.perf_counter() - t_phase:.1f} s")
+
+
 SOURCES = {
     "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
                      "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80; with fp32 "
@@ -2072,6 +2466,7 @@ def main() -> int:
         audio_times = phase_audio_times(torch, smi, workdir)
         audio_launches = phase_audio(torch, workdir, smi)
         phase_au(torch, workdir, smi)
+        phase_train(torch, workdir, smi)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

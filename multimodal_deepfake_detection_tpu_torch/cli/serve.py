@@ -48,14 +48,14 @@ the device mesh are not ported yet.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import os
-import typing
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from ..core.config import parse_config as _parse_config
 
 
 @dataclasses.dataclass
@@ -98,28 +98,9 @@ class Config:
     device: str = "cuda"
 
 
-def _parse_value(field_type, raw: str):
-    if field_type in (bool, Optional[bool]):
-        return raw.lower() in ("1", "true", "yes", "on")
-    for t in (int, float, str):
-        if field_type in (t, Optional[t]):
-            return t(raw)
-    inner = (typing.get_args(field_type) or (str,))[0]
-    return tuple(inner(v) for v in raw.split(",") if v)
-
-
 def parse_config(argv=None) -> Config:
     """``Config()`` with ``--field value`` overrides from ``argv``."""
-    parser = argparse.ArgumentParser(prog="serve")
-    hints = typing.get_type_hints(Config)
-    for f in dataclasses.fields(Config):
-        parser.add_argument(f"--{f.name}", default=None, metavar=str(f.default),
-                            help=f"default: {f.default}")
-    ns = parser.parse_args(argv)
-    overrides = {
-        name: _parse_value(hints[name], raw) for name, raw in vars(ns).items() if raw is not None
-    }
-    return Config(**overrides)
+    return _parse_config(Config, argv, prog="serve")
 
 
 def _list_inputs(folder: str, exts: Tuple[str, ...]) -> List[str]:

@@ -4,7 +4,8 @@ The format is the JAX package's (``multimodal_deepfake_detection_tpu/core/
 checkpoint.py``): one ``.npz`` holding named trees under slash-joined keys
 (``model/backbone/conv1/w``), lists keyed by their decimal index. A bundle
 written by either package loads in the other; this is how trained weights
-reach the card.
+reach the card. :func:`save_state` / :func:`load_state` snapshot the port's
+train state for ``--resume`` (``torch.save``; torch is imported only there).
 """
 from __future__ import annotations
 
@@ -98,3 +99,35 @@ def merge_params(init_params, loaded, *, strict: bool = True, _path="") -> Any:
     if strict and arr.shape != np.shape(init_params):
         raise ValueError(f"shape mismatch at {_path}: {arr.shape} vs {np.shape(init_params)}")
     return arr
+
+
+# ---------------------------------------------------------------------------
+# Train-state snapshots (torch.save; the JAX package's are its own .npz)
+# ---------------------------------------------------------------------------
+
+def save_state(path: str, state) -> None:
+    """Save a ``train.TrainState`` for ``--resume``: step, model parameters
+    and BN buffers, optimizer (moments, accumulator, counts) and EMA."""
+    import torch
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    ema = None if state.ema is None else {"params": state.ema.params, "count": state.ema.count}
+    torch.save({"step": state.step, "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(), "ema": ema}, path)
+
+
+def load_state(path: str, like):
+    """Load a :func:`save_state` snapshot into ``like`` (a TrainState of the
+    same model and optimizer layout) in place, and return it."""
+    import torch
+
+    device = next(like.model.parameters()).device
+    snap = torch.load(path, map_location=device, weights_only=True)
+    like.step = snap["step"]
+    like.model.load_state_dict(snap["model"])
+    like.optimizer.load_state_dict(snap["optimizer"])
+    if (snap["ema"] is None) != (like.ema is None):
+        raise ValueError(f"{path}: EMA state {'missing' if snap['ema'] is None else 'unexpected'}")
+    if like.ema is not None:
+        like.ema.params, like.ema.count = snap["ema"]["params"], snap["ema"]["count"]
+    return like

@@ -1,1 +1,1 @@
-"""Batching helpers (numpy only)."""
+"""Datasets, batching and synthetic trees (numpy only)."""

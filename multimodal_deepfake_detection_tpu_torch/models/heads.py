@@ -5,12 +5,14 @@ module tree has the JAX param tree's shapes (``xception_lstm_init``:
 backbone, lstm, 4 fc_layers, fc_out) so a JAX bundle merges into it strictly;
 visual serving uses the backbone, the LSTM and ArcFace, audio serving the
 backbone, the LSTM and the MLP head (:func:`xception_lstm_head_apply`, eval
-only: the training dropout comes with the training port).
+only: its training dropout is not ported yet). :class:`XceptionLSTMArcFace`
+is the tree ``cli/train_visual.py`` trains, :func:`xception_lstm_features`
+its backbone pass, with batch statistics in training.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +21,8 @@ from torch import nn
 from ..core.precision import at_least_f32
 from ..ops.conv import Linear, dense
 from ..ops.lstm import LSTM, lstm_apply, select_last_step
-from .xception import Xception
+from ..ops.resize import resize_bilinear
+from .xception import BNStats, Xception
 
 MLP_WIDTH = 1024
 FEATURE_DIM = 2048
@@ -40,6 +43,43 @@ class XceptionLSTM(nn.Module):
             Linear(MLP_WIDTH, MLP_WIDTH, g),
         ])
         self.fc_out = Linear(MLP_WIDTH, 1, g)
+
+
+class XceptionLSTMArcFace(XceptionLSTM):
+    """:class:`XceptionLSTM` with the ArcFace head as a fifth top-level
+    child, ``arcface``: the JAX ``train_visual`` params tree
+    ``{backbone, lstm, fc_layers, fc_out, arcface}``, whose top-level names
+    the train step's ``frozen_keys`` select."""
+
+    def __init__(self, hidden_dim: int, *, generator: Optional[torch.Generator] = None):
+        super().__init__(hidden_dim, generator=generator)
+        self.arcface = ArcFace(hidden_dim, 2, generator=generator)
+
+
+def xception_lstm_features(model, batch: torch.Tensor, *, mode: str, train: bool = False,
+                           compute_dtype: Optional[torch.dtype] = None, remat: bool = False
+                           ) -> Tuple[torch.Tensor, BNStats]:
+    """Per-step 2048-d backbone features ``(B, T, 2048)`` and the backbone's
+    batch statistics (empty unless ``train``; see ``Xception.train_forward``).
+
+    ``mode='video'``: ``batch`` is ``(B, T, H, W, 3)`` NHWC frames in [0, 1].
+    ``mode='audio'``: ``(B, T, 3, 13)`` channel-tripled MFCC steps, each a
+    ``(13, 1)`` image resized bilinearly to 64 x 64."""
+    if mode == "video":
+        B, T = batch.shape[:2]
+        frames = batch.reshape((B * T,) + tuple(batch.shape[2:]))
+    elif mode == "audio":
+        B, T, C, n_mfcc = batch.shape
+        frames = batch.reshape(B * T, C, n_mfcc).transpose(1, 2)[:, :, None, :]
+        frames = resize_bilinear(frames, (64, 64))
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if train:
+        feats, stats = model.backbone.train_forward(frames, compute_dtype=compute_dtype,
+                                                    remat=remat)
+    else:
+        feats, stats = model.backbone(frames, compute_dtype=compute_dtype), []
+    return feats.reshape(B, T, FEATURE_DIM), stats
 
 
 def xception_lstm_embed(head, features: torch.Tensor, *, lengths: Optional[torch.Tensor] = None,

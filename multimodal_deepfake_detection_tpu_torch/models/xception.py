@@ -1,17 +1,19 @@
-"""Xception backbone with live batch norm, eval mode.
+"""Xception backbone with live batch norm.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/models/xception.py``: the
 same block table, the same parameter shapes (in PyTorch layouts) and the same
-eval forward on NHWC images. Serving runs the BN-folded form
-(``models/fold.py``); this module is what gets folded, and what the fold is
-checked against.
+forward on NHWC images, with running statistics (:meth:`Xception.forward`)
+or batch statistics (:meth:`Xception.train_forward`, what training runs).
+Serving runs the BN-folded form (``models/fold.py``); this module is what
+gets folded, and what the fold is checked against.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import (
     BatchNorm,
@@ -32,6 +34,27 @@ XCEPTION_BLOCK_SPECS = (
 ) + ((728, 728, 3, 1, True, True),) * 8 + (
     (728, 1024, 2, 2, True, False),
 )
+
+
+# each BN of a batch-statistics forward with its (mean, unbiased var)
+BNStats = List[Tuple[BatchNorm, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def apply_bn_stats(stats: BNStats, momentum: float = 0.1) -> None:
+    """Fold a :meth:`Xception.train_forward`'s batch statistics into the
+    running statistics, once per step (the JAX ``new_state``)."""
+    for bn, (mean, var) in stats:
+        bn.update(mean, var, momentum)
+
+
+def _bn(bn: BatchNorm, h: torch.Tensor, stats: Optional[BNStats]) -> torch.Tensor:
+    """Running statistics when ``stats`` is None; else batch statistics,
+    appended to ``stats`` with their BN."""
+    if stats is None:
+        return bn(h)
+    out, st = bn.train_forward(h)
+    stats.append((bn, st))
+    return out
 
 
 def block_unit_channels(spec):
@@ -72,20 +95,24 @@ class XceptionBlock(nn.Module):
         )
         self.skip = Skip(in_ch, out_ch, generator) if (out_ch != in_ch or stride != 1) else None
 
-    def forward(self, x, compute_dtype=None):
+    def forward(self, x, compute_dtype=None, train: bool = False):
+        """Running statistics; ``train`` returns ``(out, stats)``, each BN
+        with its batch statistics, and writes no buffer, so a checkpointed
+        block recomputes without side effects."""
+        stats = [] if train else None
         h = x
         for i, unit in enumerate(self.units):
             if i > 0 or self.start_with_relu:
                 h = torch.relu(h)
-            h = unit.bn(unit.sep(h, compute_dtype))
+            h = _bn(unit.bn, unit.sep(h, compute_dtype), stats)
         if self.stride != 1:
             h = max_pool2d(h, 3, self.stride, 1)
         if self.skip is not None:
             skip = conv2d(x, self.skip.conv, stride=self.stride, compute_dtype=compute_dtype)
-            skip = self.skip.bn(skip)
+            skip = _bn(self.skip.bn, skip, stats)
         else:
             skip = x
-        return h + skip
+        return (h + skip, stats) if train else h + skip
 
 
 class Xception(nn.Module):
@@ -116,16 +143,37 @@ class Xception(nn.Module):
 
         ``upto`` ("stem", "block<k>", "exit") returns that stage's output.
         """
-        h = torch.relu(self.bn1(conv2d(x, self.conv1, stride=2, compute_dtype=compute_dtype)))
-        h = torch.relu(self.bn2(conv2d(h, self.conv2, compute_dtype=compute_dtype)))
+        return self._run(x, compute_dtype, features_only, upto, None, False)
+
+    def train_forward(self, x: torch.Tensor, *, compute_dtype=None, remat: bool = False
+                      ) -> Tuple[torch.Tensor, BNStats]:
+        """Batch-statistics forward (``xception_apply(train=True)``):
+        ``(outputs, stats)``, every BN paired with its batch statistics; the
+        running statistics change only when the caller passes ``stats`` to
+        :func:`apply_bn_stats`. ``remat`` runs each block under
+        ``torch.utils.checkpoint`` (``jax.checkpoint`` in JAX): the backward
+        recomputes the block's activations, gradients unchanged."""
+        stats: BNStats = []
+        return self._run(x, compute_dtype, False, None, stats, remat), stats
+
+    def _run(self, x, compute_dtype, features_only, upto, stats, remat):
+        bn = lambda m, h: _bn(m, h, stats)
+        h = torch.relu(bn(self.bn1, conv2d(x, self.conv1, stride=2, compute_dtype=compute_dtype)))
+        h = torch.relu(bn(self.bn2, conv2d(h, self.conv2, compute_dtype=compute_dtype)))
         if upto == "stem":
             return h
         for k, block in enumerate(self.blocks):
-            h = block(h, compute_dtype)
+            if stats is None:
+                h = block(h, compute_dtype)
+            else:
+                h, st = (checkpoint(block, h, compute_dtype, True, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if remat else block(h, compute_dtype, True))
+                stats.extend(st)
             if upto == f"block{k + 1}":
                 return h
-        h = torch.relu(self.bn3(self.conv3(h, compute_dtype)))
-        h = torch.relu(self.bn4(self.conv4(h, compute_dtype)))
+        h = torch.relu(bn(self.bn3, self.conv3(h, compute_dtype)))
+        h = torch.relu(bn(self.bn4, self.conv4(h, compute_dtype)))
         if upto == "exit":
             return h
         feats = global_avg_pool(h)

@@ -1,6 +1,8 @@
 """NHWC convolution, pooling, batch-norm and linear layers over PyTorch.
 
-Counterpart of ``multimodal_deepfake_detection_tpu/ops/conv.py`` (eval subset).
+Counterpart of ``multimodal_deepfake_detection_tpu/ops/conv.py``: eval-mode
+batch norm, and the train mode that JAX runs by default (single-pass fp32
+batch statistics, :func:`batch_norm_train`).
 Public functions keep the JAX layout: NHWC activations. Weights are held in
 PyTorch's layout (conv OIHW, depthwise ``(C, 1, kh, kw)``, linear
 ``(out, in)``); ``utils/jax_weights.py`` converts. Inside, ``x.permute(0, 3,
@@ -71,6 +73,28 @@ def batch_norm_eval(x, scale, bias, mean, var, eps: float = 1e-5) -> torch.Tenso
     return (at_least_f32(x) * s + shift).to(x.dtype)
 
 
+def batch_norm_train(x, scale, bias, eps: float = 1e-5):
+    """Channel-last train-mode BN with batch statistics over all leading axes:
+    ``(out, mean, unbiased_var)``.
+
+    The JAX default (``_bn_train_core``): fp32 statistics with the single-pass
+    variance ``max(E[x^2] - E[x]^2, 0)``, normalisation by that biased
+    variance, the output cast back to ``x.dtype``. Gradients come from
+    autograd through this formula. ``mean`` and the unbiased variance
+    (``var * n / (n - 1)``) come back detached, for the running statistics:
+    they are no-grad buffer writes, applied by :meth:`BatchNorm.update`.
+    ``F.batch_norm(training=True)`` is not used: its variance is two-pass and
+    it normalises bf16 inputs differently."""
+    xf = at_least_f32(x)
+    dims = tuple(range(x.ndim - 1))
+    mean = xf.mean(dim=dims)
+    var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    out = (xf - mean) * (rstd * at_least_f32(scale)) + at_least_f32(bias)
+    n = x.numel() // x.shape[-1]
+    return out.to(x.dtype), mean.detach(), var.detach() * (n / max(n - 1, 1))
+
+
 def linear(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -105,7 +129,7 @@ def he_normal(shape, generator: Optional[torch.Generator] = None) -> torch.Tenso
 
 
 class BatchNorm(nn.Module):
-    """Affine params + running statistics of one BN layer (eval only)."""
+    """Affine params + running statistics of one BN layer."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -116,6 +140,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm_eval(x, self.scale, self.bias, self.mean, self.var)
+
+    def train_forward(self, x: torch.Tensor):
+        """Batch statistics: ``(out, (mean, unbiased_var))``; the running
+        statistics stay as they are until :meth:`update`."""
+        out, mean, var = batch_norm_train(x, self.scale, self.bias)
+        return out, (mean, var)
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor, momentum: float = 0.1) -> None:
+        """``running = (1 - momentum) * running + momentum * batch``, as JAX
+        computes it."""
+        self.mean.copy_((1 - momentum) * self.mean + momentum * mean)
+        self.var.copy_((1 - momentum) * self.var + momentum * var)
 
 
 class SeparableConv(nn.Module):

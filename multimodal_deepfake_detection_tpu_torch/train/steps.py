@@ -1,0 +1,91 @@
+"""Train and eval step builders.
+
+Counterpart of ``multimodal_deepfake_detection_tpu/train/steps.py``. A CLI
+supplies ``loss_forward`` and gets back a step that runs forward, loss,
+backward, the frozen mask, the BN running-statistics update, the optimizer
+and the EMA, and returns the loss and the probabilities as device tensors:
+nothing in it reads a device value on the host, so the loop can enqueue the
+next step before it reads this one's loss.
+
+Freezing follows JAX, not the reference's ``requires_grad=False``: the frozen
+subtrees' gradients are zeros that still go through the clip, the L2 decay
+and Adam's moments, so a frozen backbone still decays under
+``weight_decay``. The step only drops the frozen parameters from autograd
+for the forward and backward (their gradients would be masked to zero
+anyway), which skips the backbone's backward. A frozen backbone's BN keeps
+batch statistics unless the CLI's forward puts it in eval mode.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from ..models.xception import apply_bn_stats
+from .state import TrainState, ema_update
+
+
+def _frozen_params(model: torch.nn.Module, frozen_keys: Sequence[str]):
+    return [p for k in frozen_keys if hasattr(model, k) for p in getattr(model, k).parameters()]
+
+
+def make_train_step(loss_forward: Callable, *, use_ema: bool = False,
+                    ema_decay: Optional[float] = None):
+    """``loss_forward(model, rng_seed, batch) -> (loss, (bn_stats, probs))``,
+    ``bn_stats`` as ``Xception.train_forward`` gives them (applied once,
+    after the backward). The step is ``step(state, batch, rng_seed,
+    frozen_keys=()) -> (state, loss, probs)``; ``frozen_keys`` name
+    top-level children of ``state.model``."""
+
+    def step(state: TrainState, batch, rng_seed: int, frozen_keys: Tuple[str, ...] = ()):
+        model, opt = state.model, state.optimizer
+        frozen = _frozen_params(model, frozen_keys)
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            loss, (bn_stats, probs) = loss_forward(model, rng_seed, batch)
+            opt.zero_grad()
+            loss.backward()
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
+        apply_bn_stats(bn_stats)
+        # with accumulation the EMA folds in only on real optimizer steps
+        if opt.step() and use_ema and state.ema is not None:
+            ema_update(state.ema, model, decay=ema_decay)
+        state.step += 1
+        return state, loss.detach(), probs.detach()
+
+    return step
+
+
+class _SwappedParams:
+    """The model's parameters replaced by ``params`` (by name) for the
+    ``with`` block."""
+
+    def __init__(self, model: torch.nn.Module, params):
+        self.pairs = [(p, params[n]) for n, p in model.named_parameters()]
+
+    def __enter__(self):
+        self.saved = [p.data for p, _ in self.pairs]
+        for p, q in self.pairs:
+            p.data = q
+
+    def __exit__(self, *exc):
+        for (p, _), d in zip(self.pairs, self.saved):
+            p.data = d
+
+
+def make_eval_step(eval_forward: Callable, *, use_ema_params: bool = False):
+    """``eval_forward(model, batch) -> (loss, probs)`` with BN on its running
+    statistics; the step ``(state, batch) -> (loss, probs)`` runs it without
+    autograd, with the EMA's parameters if ``use_ema_params``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch):
+        if use_ema_params and state.ema is not None:
+            with _SwappedParams(state.model, state.ema.params):
+                return eval_forward(state.model, batch)
+        return eval_forward(state.model, batch)
+
+    return step

@@ -68,11 +68,29 @@ import multimodal_deepfake_detection_tpu_torch.models.quant
 import multimodal_deepfake_detection_tpu_torch.models.heads
 import multimodal_deepfake_detection_tpu_torch.ops.mfcc
 import multimodal_deepfake_detection_tpu_torch.core.precision
+import multimodal_deepfake_detection_tpu_torch.core.config
+import multimodal_deepfake_detection_tpu_torch.core.checkpoint
+import multimodal_deepfake_detection_tpu_torch.models.losses
+import multimodal_deepfake_detection_tpu_torch.train
+import multimodal_deepfake_detection_tpu_torch.train.steps
+import multimodal_deepfake_detection_tpu_torch.train.loop
+import multimodal_deepfake_detection_tpu_torch.train.feature_cache
+import multimodal_deepfake_detection_tpu_torch.metrics.roc
+import multimodal_deepfake_detection_tpu_torch.data.datasets
+import multimodal_deepfake_detection_tpu_torch.data.loader
+import multimodal_deepfake_detection_tpu_torch.data.synthetic
+import multimodal_deepfake_detection_tpu_torch.cli.train_visual
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
     build_engine(Config(engine=engine, ckpt_path=sys.argv[1] + "/" + engine + ".npz",
                         device="cpu", lstm_hidden=4, patch_hidden=8, patch_lstm_hidden=4))
+from multimodal_deepfake_detection_tpu_torch.cli import train_visual
+from multimodal_deepfake_detection_tpu_torch.data.synthetic import make_face_npy_tree
+tree = make_face_npy_tree(sys.argv[1] + "/faces", n_per_class=1, frames=2, size=32)
+train_visual.main(["--train_folder", tree + "/train", "--eval_folder", tree + "/eval",
+                   "--checkpoint_dir", sys.argv[1] + "/ck", "--epochs", "1", "--hidden_dim", "4",
+                   "--batch_size", "2", "--buckets", "2", "--device", "cpu"], log=lambda s: None)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
 assert not loaded, loaded
@@ -81,8 +99,9 @@ print("ok")
 
 
 def test_port_imports_without_jax(tmp_path):
-    """Every module of the port imports, and the AU engines of its CLI build
-    from bundles, with JAX blocked."""
+    """Every module of the port imports, the AU engines of its CLI build
+    from bundles, and ``train_visual`` trains an epoch and writes its
+    bundle, with JAX blocked."""
     g = torch.Generator().manual_seed(0)
     save_bundle(str(tmp_path / "au_face.npz"),
                 dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))
