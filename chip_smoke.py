@@ -88,7 +88,23 @@ raises and exits non-zero:
    control, whose loss must not; then the CLI trains a synthetic tree for 2
    epochs, plain and from the feature cache, and each best bundle is scored
    through ``cli/serve.py --engine visual`` (BN-folded, bf16, K1 counted)
-   against the trainer's eval probabilities of the best epoch.
+   against the trainer's eval probabilities of the best epoch;
+9. the audio, AU-patch and AU-face trainers (``cli/train_audio.py``,
+   ``train_au_patch.py``, ``train_au_face.py``), which run no kernel of the
+   port's own but K1 where the trained audio bundle is served: (a) one SGD
+   step of each at full width (small inputs, dropout off) on the card and
+   on the CPU from the same weights, fp64 and fp32 (TF32 off), each with the
+   ``torch.var`` BN control that must fail; (b) each CLI's step at its
+   defaults (bf16; au_patch 2 x 60 x 17 patches, au_face 2 x 75 faces and
+   their patches, all at 128^2, a micro-step and an optimizer step of 4;
+   audio 8 x 120 MFCC images of 64^2 with the frozen live-BN backbone, and
+   the head-only step on cached features): ms a step, images/s, the share
+   of 989 TFLOP/s, peak memory, idle share and a profile; (c) 25 Adam steps
+   on one batch each, whose loss must fall, and the lr = 0 control; (d) each
+   CLI trains a synthetic tree for 2 epochs on the card, and its best
+   bundle is served (``AudioScorer``, bf16 on K1, counted;
+   ``AUPatchScorer``, ``AUFaceScorer``) and held against the bundle's model
+   in fp32 eval on the same inputs.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
@@ -2422,6 +2438,451 @@ def phase_train(torch, workdir: str, smi: str) -> None:
     say(f"phase 8 (visual training) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the audio, AU-patch and AU-face trainers (cli/train_audio.py,
+# train_au_patch.py, train_au_face.py). No TPU kernel lies on them: the JAX
+# trainers run the live-BN Xception and ResNet-18s on XLA convs; here cuDNN,
+# cuBLAS and autograd. K1 runs where the trained audio bundle is served.
+# ---------------------------------------------------------------------------
+
+AU_KINDS = ("au_patch", "au_face", "audio")
+# 9a, card against CPU: B, T, A (AUs), image side; the audio side is the
+# MFCC step count (its images are 64^2)
+AU_TRAIN_CPU = {"au_patch": (2, 2, 3, 32), "au_face": (2, 2, 3, 32), "audio": (2, 2, 0, 0)}
+# 9b, each CLI's defaults: B x T x A patches (and B x T faces) at 128^2; audio
+# B x T MFCC images of 64^2
+AU_TRAIN_STEP = {"au_patch": (2, 60, 17, 128), "au_face": (2, 75, 17, 128),
+                 "audio": (8, 120, 0, 64)}
+AU_OVERFIT = {"au_patch": (2, 8, 17, 128), "au_face": (2, 8, 17, 128), "audio": (8, 20, 0, 0)}
+AU_OVERFIT_STEPS, AU_OVERFIT_LR, AU_OVERFIT_FALL = 25, 1e-4, 0.3
+# 9d: 2 real + 2 fake clips a split, 8 frames x 17 AUs at 128^2 (audio: 4 +
+# 4 clips of 120 MFCC steps); the served logits within 2e-2 of the trained
+# model's fp32 eval logits (audio: the head's probabilities)
+AU_TREE = dict(frames=8, n_aus=17, size=128)
+SERVE_TRAINED_TOL = 2e-2
+
+
+def au_train_model(torch, kind: str, seed: int):
+    """The trained tree of ``kind`` at the CLI's full width."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "au_patch":
+        from multimodal_deepfake_detection_tpu_torch.models.resnet_lstm import AUPatchClassifier
+        return AUPatchClassifier(128, 128, generator=g)
+    if kind == "au_face":
+        from multimodal_deepfake_detection_tpu_torch.cli.train_au_face import (
+            AUFaceTrainModel,
+            Config,
+        )
+        return AUFaceTrainModel(Config(), g)
+    from multimodal_deepfake_detection_tpu_torch.models.heads import XceptionLSTM
+    return XceptionLSTM(512, generator=g)
+
+
+def au_train_batch(kind: str, shape, seed: int):
+    """A host batch of ``kind`` in its CLI's layout (float32 as the loaders
+    give it), the last clip one step short."""
+    B, T, A, S = shape
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(B) % 2).astype(np.float32)
+    lengths = np.full((B,), T, np.int32)
+    lengths[-1] = T - 1
+    if kind == "audio":
+        return rng.normal(0, 20, (B, T, 3, 13)).astype(np.float32), labels, lengths
+    patches = rng.random((B, T, A, S, S, 3), dtype=np.float32)
+    weights = rng.random((B, T, A), dtype=np.float32)
+    patches[-1, -1], weights[-1, -1] = 0, 0  # the short clip's padding
+    if kind == "au_patch":
+        return (patches, weights), labels, lengths
+    videos = rng.random((B, T, S, S, 3), dtype=np.float32)
+    videos[-1, -1] = 0
+    return (videos, patches, (weights > 0).astype(np.float32), weights), labels, lengths
+
+
+def au_forward_of(torch, kind: str, cdtype, generator_of=None):
+    """``loss_forward(model, rng_seed, batch)`` of ``kind``'s CLI at its
+    default config in ``cdtype``; ``generator_of(rng_seed)`` draws the
+    dropout (None: dropout off)."""
+    gen = generator_of or (lambda seed: None)
+    if kind == "au_patch":
+        from multimodal_deepfake_detection_tpu_torch.cli import train_au_patch as cli
+        fwd = cli.make_forward(cli.Config(), cdtype)
+        run = lambda m, seed, b: fwd(m, b, True)
+    elif kind == "au_face":
+        from multimodal_deepfake_detection_tpu_torch.cli import train_au_face as cli
+        from multimodal_deepfake_detection_tpu_torch.models.losses import cb_focal_class_weights
+        fwd, _ = cli.make_forwards(cli.Config(), cdtype, cb_focal_class_weights([3, 1]))
+        run = lambda m, seed, b: fwd(m, b, gen(seed))
+    else:
+        from multimodal_deepfake_detection_tpu_torch.cli import train_audio as cli
+        fwd = cli.make_forward(cli.Config(), cdtype, False)
+        run = lambda m, seed, b: fwd(m, b, True, gen(seed))
+
+    def loss_forward(model, rng_seed, batch):
+        loss, bn_stats, probs = run(model, rng_seed, batch)
+        return loss, (bn_stats, probs)
+    return loss_forward
+
+
+def cast_batch(torch, batch, dtype):
+    """Every floating tensor of a (nested) device batch to ``dtype``."""
+    if isinstance(batch, tuple):
+        return tuple(cast_batch(torch, b, dtype) for b in batch)
+    return batch.to(dtype) if batch.is_floating_point() else batch
+
+
+def au_sgd_step(torch, kind, state_dict, batch, device, dtype):
+    """One SGD step of ``kind`` (the CLI's forward, dropout off, the optax
+    clip; audio's backbone frozen) in ``dtype`` (IEEE fp32 on the card) from
+    ``state_dict``: the loss, post-step parameters and buffers."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import to_device
+    from multimodal_deepfake_detection_tpu_torch.core.precision import ieee_fp32
+    from multimodal_deepfake_detection_tpu_torch.train import TrainState
+    from multimodal_deepfake_detection_tpu_torch.train.optim import Optimizer
+    from multimodal_deepfake_detection_tpu_torch.train.steps import make_train_step
+
+    model = au_train_model(torch, kind, 0)
+    model.load_state_dict(state_dict)
+    model.to(device, dtype)
+    opt = Optimizer(torch.optim.SGD(model.parameters(), lr=TRAIN_SGD_LR), grad_clip=TRAIN_CLIP)
+    b = cast_batch(torch, to_device(batch, torch.device(device)), dtype)
+    frozen = ("backbone",) if kind == "audio" else ()
+    with ieee_fp32():
+        _, loss, _ = make_train_step(au_forward_of(torch, kind, dtype))(
+            TrainState(0, model, opt), b, 0, frozen)
+    snap = lambda named: {n: t.detach().double().cpu() for n, t in named}
+    return float(loss), snap(model.named_parameters()), snap(model.named_buffers())
+
+
+def au_train_card_vs_cpu(torch, smi: str) -> None:
+    """Phase 9a: one SGD step of each trainer on the card and on the CPU from
+    the same weights, fp64 and fp32, each with the BN-variance control."""
+    from multimodal_deepfake_detection_tpu_torch.ops import conv as conv_mod
+
+    for seed, kind in enumerate(AU_KINDS, start=90):
+        batch = au_train_batch(kind, AU_TRAIN_CPU[kind], seed)
+        model = au_train_model(torch, kind, seed)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        p0 = {n: p.detach().double() for n, p in model.named_parameters()}
+        for dtype, bars in ((torch.float64, TRAIN_CPU_BARS_FP64), (torch.float32, TRAIN_CPU_BARS)):
+            name = str(dtype).split(".")[-1]
+            cpu = au_sgd_step(torch, kind, sd, batch, "cpu", dtype)
+            card = au_sgd_step(torch, kind, sd, batch, "cuda", dtype)
+            err = step_errors(cpu, card, p0)
+            with _Patched(conv_mod, "batch_norm_train", bn_two_pass_unbiased(torch)):
+                ctl = step_errors(cpu, au_sgd_step(torch, kind, sd, batch, "cuda", dtype), p0)
+            failed = any(ctl[k] > bars[k] for k in bars)
+            say(f"{kind} train step {name}, card vs CPU (B, T, A, side {AU_TRAIN_CPU[kind]}, "
+                f"SGD {TRAIN_SGD_LR}, clip {TRAIN_CLIP}: clipped grad norm "
+                f"{err['clipped_norm']:.4f}): loss rel |d| {err['loss']:.3e} (<= "
+                f"{bars['loss']:.0e}); running stats {err['stats']:.3e} (<= {bars['stats']:.0e}); "
+                f"deltas over the global delta {err['deltas']:.3e} (<= {bars['deltas']:.0e}) "
+                f"[{smi}]")
+            say(f"control {kind} {name}, BN with torch.var's two-pass unbiased variance: loss "
+                f"{ctl['loss']:.3e}, running stats {ctl['stats']:.3e}, deltas "
+                f"{ctl['deltas']:.3e}" + ("; control: fails, as it must" if failed
+                                          else "; control: PASSES"))
+            if any(err[k] > bars[k] for k in bars):
+                raise AssertionError(f"the card's {kind} {name} step differs from the CPU's: {err}")
+            if not failed:
+                raise AssertionError(f"the BN-variance control passes the {kind} {name} bars")
+
+
+def au_train_build(torch, kind: str, trees: dict, **overrides):
+    """``kind``'s CLI ``build()`` at its defaults on the card (``trees``: the
+    synthetic data roots the loaders need) -> ``(config, state, train_step)``."""
+    from multimodal_deepfake_detection_tpu_torch.cli import train_au_face as tf
+    from multimodal_deepfake_detection_tpu_torch.cli import train_au_patch as tp
+    from multimodal_deepfake_detection_tpu_torch.cli import train_audio as ta
+
+    if kind == "au_patch":
+        cfg = tp.Config(data_root=trees["au_patch"], device="cuda", **overrides)
+        _, _, _, state, train_step, _ = tp.build(cfg)
+    elif kind == "au_face":
+        cfg = tf.Config(video_root=trees["video"], au_root=trees["au_face"], device="cuda",
+                        **overrides)
+        _, _, _, state, train_step, _ = tf.build(cfg)
+    else:
+        cfg = ta.Config(train_folder=trees["audio"] + "/train",
+                        eval_folder=trees["audio"] + "/eval", device="cuda", **overrides)
+        _, _, state, train_step, _ = ta.build(cfg)
+    return cfg, state, train_step
+
+
+def n_images(kind: str, shape) -> int:
+    B, T, A, _ = shape
+    return B * T * (A + (kind == "au_face")) if kind != "audio" else B * T
+
+
+def step_profile(torch, run) -> tuple:
+    """One ``run()`` under ``torch.profiler``: (device ops by time, busy ms,
+    wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    return ops, sum(e.self_device_time_total for e in ops) / 1e3, wall_ms
+
+
+def au_train_times(torch, smi: str, trees: dict) -> None:
+    """Phase 9b: each CLI's train step at its defaults (bf16), as the loop
+    calls it (a float32 host batch, pinned and copied in the step): ms a
+    step and images/s from CUDA events, forward FLOPs by
+    ``torch.utils.flop_counter`` (a step counted as 3 forwards, audio's
+    frozen backbone as 1), peak memory, the idle share and the top device
+    ops of one profiled step. au_face: a micro-step and an optimizer step of
+    4; audio: also the head-only step on cached features."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_deepfake_detection_tpu_torch.cli.common import to_device
+
+    for seed, kind in enumerate(AU_KINDS, start=100):
+        shape = AU_TRAIN_STEP[kind]
+        cfg, state, train_step = au_train_build(torch, kind, trees)
+        batch = au_train_batch(kind, shape, seed)
+        def forward_flops(model, host_batch):
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                au_forward_of(torch, kind, torch.bfloat16)(
+                    model, 0, to_device(host_batch, torch.device("cuda")))
+            return fc.get_total_flops()
+
+        fwd = forward_flops(state.model, batch)
+        flops = fwd * (1 if kind == "audio" else 3)
+        imgs = n_images(kind, shape)
+        runs = [("", lambda: train_step(state, batch, 0, 0), flops)]
+        if kind == "audio":  # the frozen backbone's features cached: the head alone, x 3
+            feats = (np.random.default_rng(seed).normal(0, 1, (shape[0], shape[1], 2048))
+                     .astype(np.float32), batch[1], batch[2])
+            _, cstate, cstep = au_train_build(torch, kind, trees, cache_features=True)
+            runs.append((" head-only (cached features)", lambda: cstep(cstate, feats, 0, 0),
+                         3 * forward_flops(cstate.model, feats)))
+        say(f"{kind} train step at the CLI defaults: B, T, A, side {shape}, {imgs} images, "
+            f"{cfg.compute_dtype}; host batch "
+            f"{sum(a.nbytes for a in host_arrays(batch)) / 1e6:.1f} MB float32; forward "
+            f"{fwd / 1e12:.4f} TFLOP (FlopCounterMode)")
+        for label, run, flops in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "au_face":  # start on an optimizer step's first micro-batch
+                while state.optimizer.mini_step:
+                    run()
+            for _ in range(4 if kind == "au_face" else 2):
+                run()
+            if kind == "au_face":
+                micro = []
+                for _ in range(2):  # two optimizer steps, each call timed
+                    for _ in range(cfg.accum_steps):
+                        micro.append(cuda_ms(torch, run, 1))
+                micro = np.array(micro).reshape(2, -1)
+                ms = float(micro.sum(axis=1).mean())
+                say(f"{kind} train calls: accumulating micro-steps "
+                    f"{np.round(micro[:, :-1].mean(), 2)} ms, the optimizer step's call "
+                    f"{np.round(micro[:, -1].mean(), 2)} ms; an optimizer step of "
+                    f"{cfg.accum_steps}: {ms:.2f} ms")
+                step_imgs, step_flops = imgs * cfg.accum_steps, flops * cfg.accum_steps
+                prof_run = lambda: [run() for _ in range(cfg.accum_steps)]
+            else:
+                ms = cuda_ms(torch, run, TRAIN_TIMED_STEPS)
+                step_imgs, step_flops, prof_run = imgs, flops, run
+            loss = float(run()[1])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ops, busy_ms, wall_ms = step_profile(torch, prof_run)
+            share = step_flops / (ms / 1e3) / PEAK_BF16
+            say(f"{kind} train step{label}: {ms:.2f} ms a step ({step_imgs / ms * 1e3:.1f} "
+                f"images/s), {step_flops / 1e12:.3f} TFLOP ({share:.4f} of 989 TFLOP/s bf16), "
+                f"loss {loss:.4f}, peak memory {peak:.2f} GiB; profile: "
+                f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms (idle share "
+                f"{1 - busy_ms / wall_ms:.3f}) [{smi}]")
+            for e in ops[:12]:
+                say(f"profile {kind} train{label}:   {e.self_device_time_total / 1e3:8.3f} ms  "
+                    f"x{e.count:<5d} {e.key[:160]}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"{kind} train step{label}: loss {loss}")
+        del state, train_step, runs
+        torch.cuda.empty_cache()
+
+
+def no_grad(torch, fn, *args):
+    with torch.inference_mode():
+        return fn(*args)
+
+
+def host_arrays(batch):
+    """The arrays of a nested host batch."""
+    if isinstance(batch, tuple):
+        return [a for b in batch for a in host_arrays(b)]
+    return [batch]
+
+
+def au_train_overfit(torch, smi: str) -> None:
+    """Phase 9c: 25 Adam steps (bf16, each trainer's forward, one fixed
+    dropout draw) on one batch: the loss falls; the lr = 0 control's does
+    not."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import step_generator, to_device
+    from multimodal_deepfake_detection_tpu_torch.train import TrainState, make_optimizer
+    from multimodal_deepfake_detection_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    for seed, kind in enumerate(AU_KINDS, start=110):
+        batch = to_device(au_train_batch(kind, AU_OVERFIT[kind], seed), dev)
+        step = make_train_step(au_forward_of(torch, kind, torch.bfloat16,
+                                             lambda s: step_generator(dev, s)))
+        frozen = ("backbone",) if kind == "audio" else ()
+        falls = {}
+        for lr in (AU_OVERFIT_LR, 0.0):
+            model = au_train_model(torch, kind, seed).cuda()
+            state = TrainState(0, model, make_optimizer(model.parameters(), "adam", lr,
+                                                        grad_clip=1.0))
+            losses = [float(step(state, batch, 0, frozen)[1]) for _ in range(AU_OVERFIT_STEPS)]
+            falls[lr] = 1 - losses[-1] / losses[0]
+            say(f"{kind} overfit {AU_OVERFIT[kind]}, Adam lr {lr}, {AU_OVERFIT_STEPS} steps: "
+                f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (falls {falls[lr]:.3f}; bar >= "
+                f"{AU_OVERFIT_FALL}) [{smi}]")
+            del model, state
+        if falls[AU_OVERFIT_LR] < AU_OVERFIT_FALL:
+            raise AssertionError(f"{kind}: the loss did not fall on a fixed batch")
+        if falls[0.0] >= AU_OVERFIT_FALL:
+            raise AssertionError(f"{kind}: control at lr = 0: the loss falls")
+        say(f"{kind} control, lr = 0: fails the bar, as it must")
+        torch.cuda.empty_cache()
+
+
+def au_train_trees(workdir: str) -> dict:
+    """The synthetic trees the trainers read (9b builds on them, 9d trains)."""
+    from multimodal_deepfake_detection_tpu_torch.data import synthetic
+
+    root = os.path.join(workdir, "train_au")
+    video, au = synthetic.make_joint_tree(
+        root + "/video", root + "/au_face", n_per_class=2, frames=AU_TREE["frames"],
+        n_aus=AU_TREE["n_aus"], face_size=AU_TREE["size"], patch_size=AU_TREE["size"], seed=120)
+    return {"video": video, "au_face": au,
+            "au_patch": synthetic.make_au_patch_tree(
+                root + "/au_patch", n_per_class=2, frames=AU_TREE["frames"],
+                n_aus=AU_TREE["n_aus"], size=AU_TREE["size"], seed=121),
+            "audio": synthetic.make_audio_npy_tree(root + "/audio", n_per_class=4, frames=120,
+                                                   seed=122)}
+
+
+def au_train_then_serve(torch, workdir: str, smi: str, trees: dict) -> None:
+    """Phase 9d: each CLI trains its tree for 2 epochs on the card (fp32); its
+    best bundle is served (bf16; audio on the default K1 route, counted) and
+    held against the bundle's model in fp32 eval on the same inputs: the
+    logits through the head the scorer serves (AU-face: the detector's own
+    ``head_fc``, AU-patch: the classifier, before the sigmoid; audio: the
+    head's probabilities)."""
+    from multimodal_deepfake_detection_tpu_torch.cli import train_au_face as tf
+    from multimodal_deepfake_detection_tpu_torch.cli import train_au_patch as tp
+    from multimodal_deepfake_detection_tpu_torch.cli import train_audio as ta
+    from multimodal_deepfake_detection_tpu_torch.core.precision import ieee_fp32
+    from multimodal_deepfake_detection_tpu_torch.models.au_face import au_face_detector_apply
+    from multimodal_deepfake_detection_tpu_torch.models.heads import (
+        xception_lstm_features,
+        xception_lstm_head_apply,
+    )
+    from multimodal_deepfake_detection_tpu_torch.models.resnet_lstm import (
+        au_patch_classifier_apply,
+    )
+    from multimodal_deepfake_detection_tpu_torch.models.serve import (
+        AudioScorer,
+        AUFaceScorer,
+        AUPatchScorer,
+        load_audio_bundle,
+        load_au_face_bundle,
+        load_au_patch_bundle,
+    )
+    from multimodal_deepfake_detection_tpu_torch.ops.mfcc import mfcc
+
+    dev = torch.device("cuda")
+    side, A, T = AU_TREE["size"], AU_TREE["n_aus"], AU_TREE["frames"]
+    common = ["--epochs", "2", "--compute_dtype", "float32", "--device", "cuda"]
+    runs = {
+        "au_patch": (tp, ["--data_root", trees["au_patch"], "--max_frames", str(T)]),
+        "au_face": (tf, ["--video_root", trees["video"], "--au_root", trees["au_face"],
+                         "--max_frames", str(T)]),
+        "audio": (ta, ["--train_folder", trees["audio"] + "/train", "--eval_folder",
+                       trees["audio"] + "/eval", "--eval_every", "1"]),
+    }
+    rng = np.random.default_rng(123)
+    for kind, (cli, argv) in runs.items():
+        ck = os.path.join(workdir, f"train_{kind}")
+        logs = []
+        t0 = time.perf_counter()
+        history = cli.main(argv + ["--checkpoint_dir", ck] + common, log=logs.append)
+        secs = time.perf_counter() - t0
+        for line in logs:
+            say(f"train_{kind}: {line}")
+        bundle = os.path.join(ck, ta.BUNDLE_NAME if kind == "audio" else cli.Config.bundle_name)
+        if len(history) != 2 or not os.path.exists(bundle):
+            raise AssertionError(f"train_{kind}: no best bundle after 2 epochs")
+        expected = per_call(0)
+        if kind == "au_patch":
+            x = rng.integers(0, 256, (2, T, A, side, side, 3), np.uint8)
+            w = rng.random((2, T, A)).astype(np.float32)
+            scorer = AUPatchScorer.from_bundle(bundle, device="cuda")
+            served = counted(torch, f"serve the trained {kind} bundle", lambda: no_grad(
+                torch, scorer._forward, x, w, None, False), expected)[:, 0]
+            model = load_au_patch_bundle(bundle).to(dev)
+            with torch.no_grad(), ieee_fp32():
+                xt = torch.from_numpy(x).to(dev).float() / 255.0
+                ref = au_patch_classifier_apply(
+                    model, xt, torch.from_numpy(w).to(dev),
+                    lengths=torch.full((2,), T, dtype=torch.long, device=dev))[:, 0]
+        elif kind == "au_face":
+            v = rng.integers(0, 256, (2, T, side, side, 3), np.uint8)
+            x = rng.integers(0, 256, (2, T, A, side, side, 3), np.uint8)
+            scorer = AUFaceScorer.from_bundle(bundle, device="cuda")
+            served = counted(torch, f"serve the trained {kind} bundle", lambda: no_grad(
+                torch, scorer._forward, v, x, None, None)[0], expected)[:, 0]
+            model = load_au_face_bundle(bundle).to(dev)
+            ones = torch.ones((2, T, A), device=dev)
+            with torch.no_grad(), ieee_fp32():
+                ref = au_face_detector_apply(
+                    model, torch.from_numpy(v).to(dev).float() / 255.0,
+                    torch.from_numpy(x).to(dev).float() / 255.0, ones, ones,
+                    v_valid=T, au_valid=T)[0][:, 0]
+        else:
+            waves = rng.normal(0, 0.1, (4, 16000)).astype(np.float32)
+            scorer = AudioScorer.from_bundle(bundle, device="cuda")
+            served = torch.from_numpy(counted(torch, f"serve the trained {kind} bundle",
+                                              lambda: scorer.score(waves),
+                                              per_call(1, k1=8)))
+            model = load_audio_bundle(bundle).to(dev)
+            with torch.no_grad(), ieee_fp32():
+                steps = mfcc(torch.from_numpy(waves).to(dev))  # the scorer's frontend
+                x = steps[:, :, None, :].expand(-1, -1, 3, -1)  # the trainer's MFCC layout
+                feats, _ = xception_lstm_features(model, x, mode="audio")
+                ref = xception_lstm_head_apply(model, feats)[:, 0]
+        served = served.float().cpu()
+        d = float((served - ref.float().cpu()).abs().max())
+        _, probs = history[-1].eval_scores
+        say(f"train_{kind} ({secs:.1f} s, 2 epochs): served bundle (bf16) vs the bundle's "
+            f"model in fp32 eval, {'probabilities' if kind == 'audio' else 'logits'}: max|d| "
+            f"{d:.3e} (<= {SERVE_TRAINED_TOL:.0e}); served {np.round(served.numpy(), 4)}; "
+            f"the trainer's last eval probabilities {np.round(probs, 4).tolist()} [{smi}]")
+        if not (d <= SERVE_TRAINED_TOL and torch.isfinite(served).all()):
+            raise AssertionError(f"the served {kind} bundle disagrees with its model")
+        del scorer, model
+        torch.cuda.empty_cache()
+
+
+def phase_au_train(torch, workdir: str, smi: str) -> None:
+    t_phase = time.perf_counter()
+    with NoTF32(torch):
+        au_train_card_vs_cpu(torch, smi)
+    trees = au_train_trees(workdir)
+    au_train_times(torch, smi, trees)
+    au_train_overfit(torch, smi)
+    au_train_then_serve(torch, workdir, smi, trees)
+    say(f"phase 9 (audio, AU-patch and AU-face training) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 SOURCES = {
     "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
                      "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80; with fp32 "
@@ -2467,6 +2928,7 @@ def main() -> int:
         audio_launches = phase_audio(torch, workdir, smi)
         phase_au(torch, workdir, smi)
         phase_train(torch, workdir, smi)
+        phase_au_train(torch, workdir, smi)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

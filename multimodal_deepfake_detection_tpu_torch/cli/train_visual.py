@@ -56,6 +56,7 @@ from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.feature_cache import PhaseSwitchLoader, _EpochCounter
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import arcface_to_jax, xception_lstm_to_jax
+from .common import raise_unported, resolve_device, to_device
 
 
 @dataclasses.dataclass
@@ -131,10 +132,7 @@ def check_config(config: Config) -> None:
         raise NotImplementedError(
             f"--mode {config.mode}: only 'npy' is ported; the video modes wait for the "
             "video decode (ROADMAP Queue 1 item 10)")
-    defaults = Config()
-    for name, item in _NOT_PORTED.items():
-        if getattr(config, name) != getattr(defaults, name):
-            raise NotImplementedError(f"--{name} is not ported yet: it waits for {item}")
+    raise_unported(config, _NOT_PORTED)
     if config.cache_features:
         if config.freeze_epochs <= 0:
             raise ValueError("--cache_features requires freeze_epochs > 0 (it caches "
@@ -142,25 +140,6 @@ def check_config(config: Config) -> None:
         if config.shuffle:
             raise ValueError("--cache_features requires --shuffle false (the cached "
                              "phase replays the epoch-0 batch order)")
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available (pass --device cpu "
-                           "to train on the CPU)")
-    return device
-
-
-def to_device(batch, device: torch.device):
-    """``(x, labels, lengths)`` numpy -> tensors on ``device``; on CUDA
-    through pinned memory, so the copy does not wait for the running step."""
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-    return tuple(put(a) for a in batch)
 
 
 def save_visual_bundle(path: str, model: XceptionLSTMArcFace) -> None:

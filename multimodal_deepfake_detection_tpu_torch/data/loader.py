@@ -43,6 +43,10 @@ class DataLoader:
         collate: override the collate fn (signature of pad_collate).
         prefetch: number of batches prepared ahead on a background thread.
         pad_batch: pad a short last batch up to ``batch_size``.
+        item_workers: when > 0, a batch's items load on a thread pool of that
+            size (npy reads and resizes release the GIL), in order: the
+            batches equal ``item_workers=0``'s unless items draw from a
+            shared generator (augmentation), whose draws then race.
     """
 
     def __init__(
@@ -58,6 +62,7 @@ class DataLoader:
         drop_last: bool = False,
         prefetch: int = 2,
         pad_batch: bool = True,
+        item_workers: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -71,8 +76,20 @@ class DataLoader:
         )
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.item_workers = int(item_workers)
+        self._pool = None  # made at the first threaded batch, kept across epochs
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+
+    def _load_items(self, chunk: np.ndarray) -> list:
+        if self.item_workers <= 0 or len(chunk) <= 1:
+            return [self.dataset[int(i)] for i in chunk]
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=self.item_workers,
+                                            thread_name_prefix="item-loader")
+        return list(self._pool.map(lambda i: self.dataset[int(i)], chunk))
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -95,7 +112,7 @@ class DataLoader:
             chunk = idx[start : start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            yield self.collate([self.dataset[int(i)] for i in chunk])
+            yield self.collate(self._load_items(chunk))
 
     def __iter__(self) -> Iterator:
         if self.prefetch <= 0:

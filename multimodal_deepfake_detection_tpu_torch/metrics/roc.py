@@ -155,3 +155,33 @@ def compute_metrics_interp(labels, scores, alpha: float = 0.1) -> Dict[str, floa
         "ACC@J": acc_j,
         "THR@J": float(thr_j),
     }
+
+
+# ---------------------------------------------------------------------------
+# Operating points
+# ---------------------------------------------------------------------------
+
+def pick_threshold(labels, scores, mode: str = "youden", fpr_target: float = 0.01):
+    """-> ``(threshold, fpr, tpr)``: the Youden-J point (``mode="youden"``),
+    or the highest threshold whose FPR is at most ``fpr_target`` (any other
+    mode; the first ROC point if none is)."""
+    y, s = _as_arrays(labels, scores)
+    fpr, tpr, thr = roc_curve(y, s, drop_intermediate=False)
+    if len(fpr) == 0:
+        return 0.5, 0.0, 0.0
+    if mode == "youden":
+        idx = int(np.argmax(tpr - fpr))
+    else:
+        ok = np.where(fpr <= float(fpr_target))[0]
+        idx = int(ok[-1]) if len(ok) else 0
+    return float(thr[idx]), float(fpr[idx]), float(tpr[idx])
+
+
+def compute_acc_ap_and_counts(labels, scores, thr):
+    """-> ``(acc, ap, correct_real, total_real, correct_fake, total_fake)``
+    with ``scores >= thr`` called fake; AP is NaN on a single class."""
+    y, s = _as_arrays(labels, scores)
+    preds = (s >= float(thr)).astype(int)
+    ap = float(average_precision_score(y, s)) if y.min() != y.max() else float("nan")
+    return (float((preds == y).mean()), ap, int(((preds == 0) & (y == 0)).sum()),
+            int((y == 0).sum()), int(((preds == 1) & (y == 1)).sum()), int((y == 1).sum()))

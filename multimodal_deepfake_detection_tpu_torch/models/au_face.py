@@ -1,4 +1,4 @@
-"""Cross-modal face + AU detector, eval mode.
+"""Cross-modal face + AU detector.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/models/au_face.py``:
 
@@ -11,20 +11,24 @@ Counterpart of ``multimodal_deepfake_detection_tpu/models/au_face.py``:
 * the mean-pooled concat -> ``head_fc1`` -> ReLU -> ``head_fc2``.
 
 Videos are ``(B, T, H, W, 3)``, AU patches ``(B, Ta, A, h, w, 3)``, the mask
-and weights ``(B, Ta, A)``; tokens are ``2 * lstm_hidden`` wide.
+and weights ``(B, Ta, A)``; tokens are ``2 * lstm_hidden`` wide. In
+training (``train=True``) both ResNet-18s take batch statistics, over the
+``B * T`` faces and the ``B * Ta * A`` patches, padding included.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from ..core.precision import at_least_f32
 from ..ops.conv import Linear, dense
 from ..ops.lstm import BiLSTM, bilstm_apply
 from .resnet import FEATURE_DIM, ResNet18
 from .resnet_lstm import attention_pool
+from .xception import BNStats
 
 HEAD_WIDTH = 256
 
@@ -53,12 +57,12 @@ class AUFaceDetector(nn.Module):
 def _cross_attend(q_proj: Linear, queries: torch.Tensor, keys_values: torch.Tensor, *,
                   compute_dtype: Optional[torch.dtype], key_valid=None) -> torch.Tensor:
     """Single-head scaled dot-product cross-attention with a residual; the
-    scores and the context in fp32. ``key_valid`` (a scalar) sets the keys at
-    ``s >= key_valid`` to -inf: padded tokens are inert (0 would give NaN,
-    as in JAX)."""
+    scores and the context in at least fp32. ``key_valid`` (a scalar) sets
+    the keys at ``s >= key_valid`` to -inf: padded tokens are inert (0 would
+    give NaN, as in JAX)."""
     q = dense(q_proj, queries, compute_dtype)
-    kv = keys_values.float()
-    scores = torch.einsum("btd,bsd->bts", q.float(), kv) / math.sqrt(q.shape[-1])
+    kv = at_least_f32(keys_values)
+    scores = torch.einsum("btd,bsd->bts", at_least_f32(q), kv) / math.sqrt(q.shape[-1])
     if key_valid is not None:
         valid = torch.arange(scores.shape[-1], device=scores.device) < key_valid
         scores = scores.masked_fill(~valid, float("-inf"))
@@ -67,12 +71,12 @@ def _cross_attend(q_proj: Linear, queries: torch.Tensor, keys_values: torch.Tens
 
 
 def masked_mean(tokens: torch.Tensor, valid=None) -> torch.Tensor:
-    """fp32 mean over the time axis; with ``valid`` (a scalar), of the steps
-    before it."""
-    x = tokens.float()
+    """Mean over the time axis, in at least fp32; with ``valid`` (a scalar),
+    of the steps before it."""
+    x = at_least_f32(tokens)
     if valid is None:
         return x.mean(dim=1)
-    mask = (torch.arange(x.shape[1], device=x.device) < valid).float()[None, :, None]
+    mask = (torch.arange(x.shape[1], device=x.device) < valid).to(x.dtype)[None, :, None]
     return (x * mask).sum(dim=1) / max(int(valid), 1)
 
 
@@ -88,8 +92,12 @@ def au_face_detector_apply(
     compute_dtype: Optional[torch.dtype] = None,
     face_backbone_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     au_backbone_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> ``(logits (B, 1), v_tokens (B, T, 2H), au_tokens (B, Ta, 2H))``.
+    train: bool = False,
+) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+           Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BNStats]]:
+    """-> ``(logits (B, 1), v_tokens (B, T, 2H), au_tokens (B, Ta, 2H))``;
+    with ``train``, the two backbones' batch statistics after them (see
+    ``ResNet18.train_forward``).
 
     ``v_valid`` / ``au_valid`` (ints) mark the valid prefix of each padded
     time axis: the backward scans start there, and the padded tokens leave
@@ -100,18 +108,26 @@ def au_face_detector_apply(
     B, T = videos.shape[:2]
     Ta, A = au_patches.shape[1], au_patches.shape[2]
     cd = compute_dtype
+    stats: BNStats = []
+
+    def backbone(net, fn, x):
+        if fn is not None:
+            return fn(x)
+        if train:
+            feats, st = net.train_forward(x, cd)
+            stats.extend(st)
+            return feats
+        return net(x, cd)
 
     frames = videos.reshape((B * T,) + tuple(videos.shape[2:]))
-    f_feats = (face_backbone_fn(frames) if face_backbone_fn is not None
-               else model.face_backbone(frames, cd))
+    f_feats = backbone(model.face_backbone, face_backbone_fn, frames)
     f_tokens = dense(model.face_proj, f_feats, cd).reshape(B, T, -1)
     v_tokens = bilstm_apply(model.face_lstm, f_tokens, compute_dtype=cd, valid_T=v_valid)
 
     patches = au_patches.reshape((B * Ta * A,) + tuple(au_patches.shape[3:]))
-    a_feats = (au_backbone_fn(patches) if au_backbone_fn is not None
-               else model.au_backbone(patches, cd))
+    a_feats = backbone(model.au_backbone, au_backbone_fn, patches)
     a_feats = dense(model.au_proj, a_feats, cd).reshape(B, Ta, A, -1)
-    scores = dense(model.au_attn, a_feats, cd).float()
+    scores = at_least_f32(dense(model.au_attn, a_feats, cd))
     if au_mask is not None:
         scores = torch.where(au_mask[..., None] > 0, scores, scores.new_tensor(-1e9))
     a_pooled = attention_pool(a_feats, scores, au_weight)
@@ -125,4 +141,5 @@ def au_face_detector_apply(
     pooled = torch.cat([masked_mean(v_tokens, v_valid), masked_mean(au_tokens, au_valid)],
                        dim=-1).to(v_tokens.dtype)
     h = torch.relu(dense(model.head_fc1, pooled, cd))
-    return dense(model.head_fc2, h, cd), v_tokens, au_tokens
+    out = (dense(model.head_fc2, h, cd), v_tokens, au_tokens)
+    return out + (stats,) if train else out

@@ -1,13 +1,20 @@
-"""XceptionLSTM skeleton, its MLP head and the ArcFace head.
+"""XceptionLSTM skeleton, its MLP head, the ArcFace head and the embed head.
 
 Counterpart of ``multimodal_deepfake_detection_tpu/models/heads.py``. The
 module tree has the JAX param tree's shapes (``xception_lstm_init``:
 backbone, lstm, 4 fc_layers, fc_out) so a JAX bundle merges into it strictly;
-visual serving uses the backbone, the LSTM and ArcFace, audio serving the
-backbone, the LSTM and the MLP head (:func:`xception_lstm_head_apply`, eval
-only: its training dropout is not ported yet). :class:`XceptionLSTMArcFace`
-is the tree ``cli/train_visual.py`` trains, :func:`xception_lstm_features`
-its backbone pass, with batch statistics in training.
+visual serving uses the backbone, the LSTM and ArcFace, audio serving and
+``cli/train_audio.py`` the backbone, the LSTM and the MLP head
+(:func:`xception_lstm_head_apply`). :class:`XceptionLSTMArcFace` is the tree
+``cli/train_visual.py`` trains, :func:`xception_lstm_features` its backbone
+pass, with batch statistics in training. :class:`EmbedHead` projects the
+AU-face detector's pooled tokens for ArcFace (``cli/train_au_face.py``).
+
+Training dropout (the MLP head's keep 0.7, the embed head's keep 0.8) draws
+its masks from an explicit ``torch.Generator`` on the activations' device
+(:func:`dropout`); without one, or outside training, it is the identity.
+The masks are not JAX's (``jax.random.bernoulli``): the same seed gives the
+same mask in the port, not the same as in JAX.
 """
 from __future__ import annotations
 
@@ -92,16 +99,30 @@ def xception_lstm_embed(head, features: torch.Tensor, *, lengths: Optional[torch
     return select_last_step(outputs, lengths, mask_padding=mask_padding)
 
 
-def xception_lstm_head_apply(head, features: torch.Tensor, *,
+def dropout(h: torch.Tensor, keep: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``keep`` (a
+    uniform draw from ``generator`` below it) and scaled by ``1 / keep`` in
+    ``h``'s dtype, the rest 0; the identity without a generator."""
+    if generator is None:
+        return h
+    kept = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(kept, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+def xception_lstm_head_apply(head, features: torch.Tensor, *, train: bool = False,
+                             generator: Optional[torch.Generator] = None,
                              lengths: Optional[torch.Tensor] = None, mask_padding: bool = True,
                              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """LSTM -> last valid step -> 4 x (linear + ReLU) -> ``fc_out`` in the
-    compute dtype -> the fp32 sigmoid probability ``(B, 1)``."""
+    """LSTM -> last valid step -> 4 x (linear + ReLU [+ dropout]) -> ``fc_out``
+    in the compute dtype -> the fp32 sigmoid probability ``(B, 1)``. With
+    ``train`` and a ``generator``, dropout with keep 0.7 after each ReLU."""
     h = xception_lstm_embed(head, features, lengths=lengths, mask_padding=mask_padding,
                             compute_dtype=compute_dtype)
     for layer in head.fc_layers:
         h = torch.relu(dense(layer, h, compute_dtype))
-    return torch.sigmoid(dense(head.fc_out, h, compute_dtype).float())
+        if train:
+            h = dropout(h, 0.7, generator)
+    return torch.sigmoid(at_least_f32(dense(head.fc_out, h, compute_dtype)))
 
 
 class ArcFace(nn.Module):
@@ -140,3 +161,25 @@ def arcface_apply(
     target = torch.cos(theta + m)
     one_hot = F.one_hot(labels.long(), w.shape[0]).to(cos.dtype)
     return s * (cos * (1 - one_hot) + target * one_hot)
+
+
+class EmbedHead(nn.Module):
+    """``fc1 (in -> 256)`` and ``fc2 (256 -> out)``: the JAX
+    ``embed_head_init`` tree."""
+
+    def __init__(self, in_dim: int, *, hidden: int = 256, out: int = 128,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = Linear(in_dim, hidden, generator)
+        self.fc2 = Linear(hidden, out, generator)
+
+
+def embed_head_apply(head: EmbedHead, x: torch.Tensor, *, train: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``fc1`` -> ReLU [-> dropout, keep 0.8, with ``train`` and a
+    ``generator``] -> ``fc2``, in the compute dtype."""
+    h = torch.relu(dense(head.fc1, x, compute_dtype))
+    if train:
+        h = dropout(h, 0.8, generator)
+    return dense(head.fc2, h, compute_dtype)

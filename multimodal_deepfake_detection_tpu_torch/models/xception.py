@@ -47,7 +47,7 @@ def apply_bn_stats(stats: BNStats, momentum: float = 0.1) -> None:
         bn.update(mean, var, momentum)
 
 
-def _bn(bn: BatchNorm, h: torch.Tensor, stats: Optional[BNStats]) -> torch.Tensor:
+def bn_forward(bn: BatchNorm, h: torch.Tensor, stats: Optional[BNStats]) -> torch.Tensor:
     """Running statistics when ``stats`` is None; else batch statistics,
     appended to ``stats`` with their BN."""
     if stats is None:
@@ -104,12 +104,12 @@ class XceptionBlock(nn.Module):
         for i, unit in enumerate(self.units):
             if i > 0 or self.start_with_relu:
                 h = torch.relu(h)
-            h = _bn(unit.bn, unit.sep(h, compute_dtype), stats)
+            h = bn_forward(unit.bn, unit.sep(h, compute_dtype), stats)
         if self.stride != 1:
             h = max_pool2d(h, 3, self.stride, 1)
         if self.skip is not None:
             skip = conv2d(x, self.skip.conv, stride=self.stride, compute_dtype=compute_dtype)
-            skip = _bn(self.skip.bn, skip, stats)
+            skip = bn_forward(self.skip.bn, skip, stats)
         else:
             skip = x
         return (h + skip, stats) if train else h + skip
@@ -157,7 +157,7 @@ class Xception(nn.Module):
         return self._run(x, compute_dtype, False, None, stats, remat), stats
 
     def _run(self, x, compute_dtype, features_only, upto, stats, remat):
-        bn = lambda m, h: _bn(m, h, stats)
+        bn = lambda m, h: bn_forward(m, h, stats)
         h = torch.relu(bn(self.bn1, conv2d(x, self.conv1, stride=2, compute_dtype=compute_dtype)))
         h = torch.relu(bn(self.bn2, conv2d(h, self.conv2, compute_dtype=compute_dtype)))
         if upto == "stem":

@@ -59,12 +59,14 @@ def make_train_step(loss_forward: Callable, *, use_ema: bool = False,
     return step
 
 
-class _SwappedParams:
+class SwappedParams:
     """The model's parameters replaced by ``params`` (by name) for the
-    ``with`` block."""
+    ``with`` block, but those under the top-level children named in
+    ``keep``."""
 
-    def __init__(self, model: torch.nn.Module, params):
-        self.pairs = [(p, params[n]) for n, p in model.named_parameters()]
+    def __init__(self, model: torch.nn.Module, params, keep: Sequence[str] = ()):
+        self.pairs = [(p, params[n]) for n, p in model.named_parameters()
+                      if n.split(".", 1)[0] not in keep]
 
     def __enter__(self):
         self.saved = [p.data for p, _ in self.pairs]
@@ -76,15 +78,18 @@ class _SwappedParams:
             p.data = d
 
 
-def make_eval_step(eval_forward: Callable, *, use_ema_params: bool = False):
+def make_eval_step(eval_forward: Callable, *, use_ema_params: bool = False,
+                   keep_current: Sequence[str] = ()):
     """``eval_forward(model, batch) -> (loss, probs)`` with BN on its running
     statistics; the step ``(state, batch) -> (loss, probs)`` runs it without
-    autograd, with the EMA's parameters if ``use_ema_params``."""
+    autograd, with the EMA's parameters if ``use_ema_params``, except under
+    the top-level children named in ``keep_current``, which keep their
+    current ones (``train_au_face`` evaluates its current ArcFace head)."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
         if use_ema_params and state.ema is not None:
-            with _SwappedParams(state.model, state.ema.params):
+            with SwappedParams(state.model, state.ema.params, keep_current):
                 return eval_forward(state.model, batch)
         return eval_forward(state.model, batch)
 

@@ -20,8 +20,9 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..core.checkpoint import save_bundle
 from ..models.au_face import AUFaceDetector
-from ..models.heads import ArcFace, XceptionLSTM
+from ..models.heads import ArcFace, EmbedHead, XceptionLSTM
 from ..models.quant import (
     ConvNode,
     QuantBlock,
@@ -141,6 +142,11 @@ def _arcface_leaves(m: ArcFace) -> Iterator[Leaf]:
     yield "params", ("w",), m.w, "plain"
 
 
+def _embed_head_leaves(m: EmbedHead) -> Iterator[Leaf]:
+    yield from _linear_leaves(("fc1",), m.fc1)
+    yield from _linear_leaves(("fc2",), m.fc2)
+
+
 def _export(leaves) -> Tuple[Dict, Dict]:
     trees: Dict[str, Dict] = {"params": {}, "state": {}}
     for tree, path, t, kind in leaves:
@@ -203,6 +209,17 @@ def arcface_from_jax(params) -> ArcFace:
     return model
 
 
+def embed_head_to_jax(model: EmbedHead) -> Dict:
+    return _export(_embed_head_leaves(model))[0]
+
+
+def embed_head_from_jax(params) -> EmbedHead:
+    in_dim, hidden = np.shape(params["fc1"]["w"])
+    model = EmbedHead(in_dim, hidden=hidden, out=np.shape(params["fc2"]["w"])[1])
+    _import(_embed_head_leaves(model), params, {})
+    return model
+
+
 def au_patch_to_jax(model: AUPatchClassifier) -> Tuple[Dict, Dict]:
     """-> (params, state) with ``state = {"backbone": ...}``, as
     ``au_patch_classifier_init``."""
@@ -226,6 +243,33 @@ def au_face_from_jax(params, state) -> AUFaceDetector:
     model = AUFaceDetector(np.shape(params["face_lstm"]["fwd"]["w_hh"])[0])
     _import(_au_face_leaves(model), params, state)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The trainers' best bundles, in the JAX CLIs' layouts
+# ---------------------------------------------------------------------------
+
+def save_audio_bundle(path: str, model: XceptionLSTM) -> None:
+    """The JAX ``train_audio`` bundle ``{model, state}``."""
+    params, state = xception_lstm_to_jax(model)
+    save_bundle(path, {"model": params, "state": state})
+
+
+def save_au_patch_bundle(path: str, model: AUPatchClassifier) -> None:
+    """The JAX ``train_au_patch`` bundle ``{model, state}``."""
+    params, state = au_patch_to_jax(model)
+    save_bundle(path, {"model": params, "state": state})
+
+
+def save_au_face_bundle(path: str, detector: AUFaceDetector, embed: EmbedHead,
+                        arcface: ArcFace, best_auc: float) -> None:
+    """The JAX ``train_au_face`` bundle ``{model, embed, arcface, state,
+    best_auc}``, of the modules as given (the CLI passes the EMA's detector
+    and embed head with the current ArcFace head)."""
+    params, state = au_face_to_jax(detector)
+    save_bundle(path, {"model": params, "embed": embed_head_to_jax(embed),
+                       "arcface": arcface_to_jax(arcface), "state": state,
+                       "best_auc": np.asarray(best_auc, np.float32)})
 
 
 # ---------------------------------------------------------------------------

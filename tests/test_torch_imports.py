@@ -80,6 +80,11 @@ import multimodal_deepfake_detection_tpu_torch.data.datasets
 import multimodal_deepfake_detection_tpu_torch.data.loader
 import multimodal_deepfake_detection_tpu_torch.data.synthetic
 import multimodal_deepfake_detection_tpu_torch.cli.train_visual
+import multimodal_deepfake_detection_tpu_torch.cli.train_audio
+import multimodal_deepfake_detection_tpu_torch.cli.train_au_patch
+import multimodal_deepfake_detection_tpu_torch.cli.train_au_face
+import multimodal_deepfake_detection_tpu_torch.data.au_patches
+import multimodal_deepfake_detection_tpu_torch.data.metadata
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
@@ -91,6 +96,24 @@ tree = make_face_npy_tree(sys.argv[1] + "/faces", n_per_class=1, frames=2, size=
 train_visual.main(["--train_folder", tree + "/train", "--eval_folder", tree + "/eval",
                    "--checkpoint_dir", sys.argv[1] + "/ck", "--epochs", "1", "--hidden_dim", "4",
                    "--batch_size", "2", "--buckets", "2", "--device", "cpu"], log=lambda s: None)
+from multimodal_deepfake_detection_tpu_torch.cli import train_au_face, train_au_patch, train_audio
+from multimodal_deepfake_detection_tpu_torch.data import synthetic
+root = sys.argv[1]
+synthetic.make_au_patch_tree(root + "/patches", n_per_class=1, frames=2, n_aus=2, size=16)
+synthetic.make_joint_tree(root + "/jv", root + "/ja", n_per_class=1, frames=2, n_aus=2,
+                          face_size=16, patch_size=16)
+synthetic.make_audio_npy_tree(root + "/mfcc", n_per_class=1, frames=3)
+common = ["--epochs", "1", "--device", "cpu"]
+train_au_patch.main(["--data_root", root + "/patches", "--checkpoint_dir", root + "/cp",
+                     "--hidden_dim", "8", "--lstm_hidden", "4", "--image_size", "16",
+                     "--max_frames", "2", "--max_aus", "2"] + common, log=lambda s: None)
+train_au_face.main(["--video_root", root + "/jv", "--au_root", root + "/ja", "--checkpoint_dir",
+                    root + "/cf", "--lstm_hidden", "4", "--face_dim", "8", "--au_dim", "8",
+                    "--embed_dim", "8", "--num_aus", "2", "--image_size", "16", "--max_frames",
+                    "2"] + common, log=lambda s: None)
+train_audio.main(["--train_folder", root + "/mfcc/train", "--eval_folder", root + "/mfcc/eval",
+                  "--checkpoint_dir", root + "/ca", "--hidden_dim", "4", "--batch_size", "2",
+                  "--buckets", "3", "--eval_every", "1"] + common, log=lambda s: None)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
 assert not loaded, loaded
@@ -100,8 +123,9 @@ print("ok")
 
 def test_port_imports_without_jax(tmp_path):
     """Every module of the port imports, the AU engines of its CLI build
-    from bundles, and ``train_visual`` trains an epoch and writes its
-    bundle, with JAX blocked."""
+    from bundles, and ``train_visual``, ``train_au_patch``,
+    ``train_au_face`` and ``train_audio`` each train an epoch, with JAX
+    blocked."""
     g = torch.Generator().manual_seed(0)
     save_bundle(str(tmp_path / "au_face.npz"),
                 dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))
