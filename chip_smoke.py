@@ -104,12 +104,29 @@ raises and exits non-zero:
    CLI trains a synthetic tree for 2 epochs on the card, and its best
    bundle is served (``AudioScorer``, bf16 on K1, counted;
    ``AUPatchScorer``, ``AUFaceScorer``) and held against the bundle's model
-   in fp32 eval on the same inputs.
+   in fp32 eval on the same inputs;
+10. serving deployment: the visual bundle's scoring program (T = 8,
+   symbolic batch, bf16) exported by ``cli/export_serving.py`` on the fp
+   path and from the live scorer on every other kernel path (``w8a8-pallas``,
+   ``fuse_entry`` + ``fuse_exit``, ``entry_pair`` + ``middle_taps bf16``;
+   ``w8a8-hybrid`` and ``w8a8`` at a static batch of 32; the int8 ones
+   calibrated on the CLI's first batch), and the audio bundle's at 16,000
+   samples: each graph must hold as
+   many ``torch.ops.mdfd`` nodes as its live call launches kernels, and each
+   program, replayed through ``ArtifactScorer`` at B = 32 (64 clips for
+   audio), is counted and held against its live scorer (bit-equal expected);
+   the fp program also through ``cli/serve.py --artifact`` over phase 4's
+   clips (counted) and through ``cli/serve_daemon.py --artifact`` (max_batch
+   16, max_wait 5 ms, warm-up 8 x 256^2): 64 single-clip npz requests from
+   16 threads over HTTP to 127.0.0.1, each score held against the clip scored
+   alone (with the rotated-pairing control), requests/s and p50/p99; then ms
+   per ``score()`` of the program against the live scorer, in turns.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
-the same readings at the audio path's shapes); the last line is
-``{"ok": true, "device": {...}}``.
+the same readings at the audio path's shapes, its ``artifact`` entry the
+launches per backbone call of the exported program that runs it); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -721,6 +738,25 @@ def held(torch, label, a, b, bars, *, control: bool = False) -> None:
                                              else "disagreement"))
 
 
+def visual_inputs(torch, workdir: str):
+    """The seeded visual bundle and phase 4's clips (``CLIP_LENGTHS`` at
+    256^2, saved as ``.npy``), written once: ``(bundle, clip_dir, clips)``."""
+    bundle = os.path.join(workdir, "visual.npz")
+    clip_dir = os.path.join(workdir, "clips")
+    if not os.path.exists(bundle):
+        write_bundle(torch, bundle)
+        os.makedirs(clip_dir)
+    rng = np.random.default_rng(0)
+    clips = []
+    for i, t in enumerate(CLIP_LENGTHS):
+        clip = rng.integers(0, 256, (t, 256, 256, 3), dtype=np.uint8)
+        path = os.path.join(clip_dir, f"clip{i}.npy")
+        if not os.path.exists(path):
+            np.save(path, clip)
+        clips.append(clip)
+    return bundle, clip_dir, clips
+
+
 def phase_slice(torch, workdir: str) -> dict:
     from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
     from multimodal_deepfake_detection_tpu_torch.models.fold import fold_xception_bn
@@ -734,16 +770,7 @@ def phase_slice(torch, workdir: str) -> dict:
         load_visual_bundle,
     )
 
-    bundle = os.path.join(workdir, "visual.npz")
-    write_bundle(torch, bundle)
-    clip_dir = os.path.join(workdir, "clips")
-    os.makedirs(clip_dir)
-    rng = np.random.default_rng(0)
-    clips = []
-    for i, t in enumerate(CLIP_LENGTHS):
-        clip = rng.integers(0, 256, (t, 256, 256, 3), dtype=np.uint8)
-        np.save(os.path.join(clip_dir, f"clip{i}.npy"), clip)
-        clips.append(clip)
+    bundle, clip_dir, clips = visual_inputs(torch, workdir)
     calls = -(-len(clips) // BATCH_SIZE)
     batches = [_pad_stack(clips[i : i + BATCH_SIZE]) for i in range(0, len(clips), BATCH_SIZE)]
     kw = dict(device="cuda", buckets=(25, 50, 75))
@@ -2826,7 +2853,8 @@ def au_train_then_serve(torch, workdir: str, smi: str, trees: dict) -> None:
             w = rng.random((2, T, A)).astype(np.float32)
             scorer = AUPatchScorer.from_bundle(bundle, device="cuda")
             served = counted(torch, f"serve the trained {kind} bundle", lambda: no_grad(
-                torch, scorer._forward, x, w, None, False), expected)[:, 0]
+                torch, lambda: scorer._apply(*scorer._inputs(x, w, None), False)),
+                expected)[:, 0]
             model = load_au_patch_bundle(bundle).to(dev)
             with torch.no_grad(), ieee_fp32():
                 xt = torch.from_numpy(x).to(dev).float() / 255.0
@@ -2838,7 +2866,8 @@ def au_train_then_serve(torch, workdir: str, smi: str, trees: dict) -> None:
             x = rng.integers(0, 256, (2, T, A, side, side, 3), np.uint8)
             scorer = AUFaceScorer.from_bundle(bundle, device="cuda")
             served = counted(torch, f"serve the trained {kind} bundle", lambda: no_grad(
-                torch, scorer._forward, v, x, None, None)[0], expected)[:, 0]
+                torch, lambda: scorer._apply(*scorer._inputs(v, x, None, None))[0]),
+                expected)[:, 0]
             model = load_au_face_bundle(bundle).to(dev)
             ones = torch.ones((2, T, A), device=dev)
             with torch.no_grad(), ieee_fp32():
@@ -2883,6 +2912,237 @@ def phase_au_train(torch, workdir: str, smi: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 10, serving deployment: programs of the visual bundle (T = 8,
+# bf16), one per kernel path: the live scorer's options, launches per
+# backbone call, and the batch axis: symbolic, or static at ARTIFACT_B (a
+# symbolic batch makes tracing the int8 walks' ~1,500 nodes 4x slower on the
+# host). The fp program is written by cli/export_serving.py and replayed by
+# cli/serve.py --artifact and the daemon; the others are exported from
+# their live scorers (models/export.py::export_visual), so they hold the
+# very calibrated tree the live scorer serves.
+ARTIFACT_T, ARTIFACT_B = 8, 32
+ARTIFACTS = {
+    "fp": ({}, dict(k1=8), "b"),
+    "w8a8-pallas": ({"quantize": "w8a8-pallas"}, dict(k2=8, dw=10), "b"),
+    "fuse_entry+fuse_exit": ({"fuse_entry": True, "fuse_exit": True}, dict(k1=8, k3=4, k5=2),
+                             "b"),
+    "entry_pair+middle_taps_bf16": ({"entry_pair": True, "middle_taps": "bf16"},
+                                    dict(k1b=8, k4=4), "b"),
+    "w8a8-hybrid": ({"quantize": "w8a8-hybrid"}, dict(k1=8, dw=10), ARTIFACT_B),
+    "w8a8": ({"quantize": "w8a8"}, dict(dw=34), ARTIFACT_B),
+}
+# an artifact against its live scorer: the same ops in the same order, so
+# bit-equal is expected; the bar is one bf16 ulp of the probability
+ARTIFACT_REL_TOL = 2.0 ** -8
+DAEMON_REQUESTS, DAEMON_THREADS, DAEMON_T = 64, 16, (8, 5, 3)
+# the daemon's scores against each clip scored alone by the live scorer,
+# max |d| / |solo|: sound 1.639e-6 (batches of up to 16 clips against B = 1
+# in bf16), the control (each score against the next clip's) 1.310e-1
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+DAEMON_REL_TOL = 1e-3
+
+
+def graph_nodes(art) -> dict:
+    """The ``mdfd`` nodes of an ArtifactScorer's one program, per counter."""
+    from multimodal_deepfake_detection_tpu_torch.models.export import kernel_nodes
+
+    (program,) = art.programs.values()
+    nodes = kernel_nodes(program)
+    return {name: nodes.get(name, 0) for name in KERNELS}
+
+
+def rel_max(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - b) / np.abs(b)))
+
+
+def held_rel(label: str, got, ref, tol: float, *, control: bool = False) -> float:
+    d = rel_max(got, ref)
+    ok = d <= tol
+    verdict = ("; control: fails, as it must" if not ok else "; control: PASSES") if control else ""
+    say(f"{label}: score max |d| / |ref| {d:.3e} (<= {tol:.3e}){verdict}")
+    if ok == control:
+        raise AssertionError(f"{label}: " + ("the control passes the bar" if control
+                                             else "disagreement"))
+    return d
+
+
+def artifact_held(torch, label, blob, live, batch, per_backbone) -> dict:
+    """``blob`` loaded by ``ArtifactScorer``: its graph must hold as many
+    ``mdfd`` nodes as ``live`` launches; both score ``batch`` (one backbone
+    call), counted, and the scores are held to ``ARTIFACT_REL_TOL``. Returns
+    the artifact's launches."""
+    from multimodal_deepfake_detection_tpu_torch.models.artifact import ArtifactScorer
+
+    t0 = time.perf_counter()
+    art = ArtifactScorer(blob)
+    expected = per_call(1, **per_backbone)
+    nodes = graph_nodes(art)
+    say(f"artifact {label}: {len(blob) / 1e6:.1f} MB, loaded in {time.perf_counter() - t0:.2f} "
+        f"s; mdfd nodes {nodes}")
+    if nodes != expected:
+        raise AssertionError(f"artifact {label}: graph nodes {nodes}, live launches {expected}")
+    got = counted(torch, f"artifact {label} (ArtifactScorer)", lambda: art.score(*batch), expected)
+    want = counted(torch, f"live {label}", lambda: live.score(*batch), expected)
+    held_rel(f"artifact {label} vs live", got, want, ARTIFACT_REL_TOL)
+    return expected
+
+
+def exported(label: str, export):
+    """``export()`` timed; returns its blob."""
+    t0 = time.perf_counter()
+    blob = export()
+    say(f"export {label}: {time.perf_counter() - t0:.2f} s")
+    return blob
+
+
+def post_npz(url: str, body: bytes):
+    import urllib.request
+
+    req = urllib.request.Request(url, body, {"Content-Type": "application/x-npz"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def daemon_traffic(torch, fp_path: str, solo, smi: str) -> None:
+    """``cli/serve_daemon.py --artifact`` through its ``started`` hook; 64
+    single-clip npz requests from 16 threads; each score held against the
+    live scorer's solo score of that clip, the pairing rotated by one as
+    the control."""
+    import io
+    import threading
+
+    from multimodal_deepfake_detection_tpu_torch.cli import serve_daemon
+
+    rng = np.random.default_rng(100)
+    clips = [rng.integers(0, 256, (DAEMON_T[i % len(DAEMON_T)], 256, 256, 3), dtype=np.uint8)
+             for i in range(DAEMON_REQUESTS)]
+    bodies = []
+    for clip in clips:
+        buf = io.BytesIO()
+        np.savez(buf, frames=clip)
+        bodies.append(buf.getvalue())
+    started = []
+    t0 = time.perf_counter()
+    serve_daemon.main(["--engine", "visual", "--artifact", fp_path, "--device", "cuda", "--port",
+                       "0", "--max_batch", "16", "--max_wait_ms", "5", "--warmup", "8,256,256"],
+                      log=say, started=started)
+    (daemon,) = started
+    warm = daemon.stats()["engines"]["visual"]
+    say(f"daemon up and warm in {time.perf_counter() - t0:.2f} s")
+    scores, lat = [None] * DAEMON_REQUESTS, [None] * DAEMON_REQUESTS
+    url = daemon.url + "/v1/score/visual"
+
+    def client(k):
+        for i in range(k, DAEMON_REQUESTS, DAEMON_THREADS):
+            t = time.perf_counter()
+            scores[i] = post_npz(url, bodies[i])["score"]
+            lat[i] = time.perf_counter() - t
+
+    try:
+        t = time.perf_counter()  # one request first: the client's and server's HTTP cold
+        cold = post_npz(url, bodies[0])["score"]
+        say(f"daemon: a first, lone request in {(time.perf_counter() - t) * 1e3:.2f} ms")
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(DAEMON_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a daemon client did not finish in 600 s")
+        stats = daemon.stats()["engines"]["visual"]
+    finally:
+        daemon.stop()
+    if any(s is None for s in scores):
+        raise AssertionError("a daemon request got no score")
+    lat_ms = np.array(lat) * 1e3
+    batches = stats["batches"] - warm["batches"]
+    say(f"daemon: {DAEMON_REQUESTS} requests from {DAEMON_THREADS} threads in {wall:.3f} s: "
+        f"{DAEMON_REQUESTS / wall:.1f} requests/s, latency p50 {np.percentile(lat_ms, 50):.2f} "
+        f"ms, p99 {np.percentile(lat_ms, 99):.2f} ms, max {lat_ms.max():.2f} ms (request 0's "
+        f"{lat_ms[0]:.2f}); {batches - 1} batches, "
+        f"{(stats['scored'] - warm['scored'] - 1) / (batches - 1):.2f} clips a batch, "
+        f"{stats['pad_rows'] - warm['pad_rows']} pad rows; the batcher's own enqueue-to-score "
+        f"latency (last 1,000, warm-up included) p50 {stats['latency_ms_p50']} ms, p90 "
+        f"{stats['latency_ms_p90']} ms ({smi})")
+    want = np.array([solo.score(c[None])[0] for c in clips])
+    held_rel("daemon vs solo", [cold] + scores, np.concatenate([want[:1], want]), DAEMON_REL_TOL)
+    held_rel("control daemon vs solo of the next clip", scores, np.roll(want, 1), DAEMON_REL_TOL,
+             control=True)
+
+
+def phase_artifacts(torch, workdir: str, smi: str) -> dict:
+    """Phase 10, serving deployment; returns each kernel's launches per
+    backbone call on the first exported program that runs it."""
+    from multimodal_deepfake_detection_tpu_torch.cli import export_serving
+    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
+    from multimodal_deepfake_detection_tpu_torch.models.export import export_audio, export_visual
+    from multimodal_deepfake_detection_tpu_torch.models.serve import (
+        AudioScorer,
+        VisualScorer,
+        load_visual_bundle,
+    )
+
+    t_phase = time.perf_counter()
+    bundle, clip_dir, clips = visual_inputs(torch, workdir)
+    calls = -(-len(clips) // BATCH_SIZE)
+    calib = _pad_stack(clips[:BATCH_SIZE])[0]  # the CLI's first batch
+    rng = np.random.default_rng(10)
+    batch = (rng.integers(0, 256, (ARTIFACT_B, ARTIFACT_T, 256, 256, 3), dtype=np.uint8),
+             np.full((ARTIFACT_B,), ARTIFACT_T, np.int32))
+    model = load_visual_bundle(bundle)
+    launches = {}
+    for label, (live_kw, per_backbone, batch_axis) in ARTIFACTS.items():
+        live = VisualScorer(*model, device="cuda", buckets=(ARTIFACT_T,), **live_kw)
+        if label == "fp":  # the CLI, as a deployment runs it
+            fp_path = os.path.join(workdir, "fp.ptprog")
+            argv = ["--engine", "visual", "--ckpt_path", bundle, "--frames", str(ARTIFACT_T),
+                    "--size", "256", "--out", fp_path, "--device", "cuda"]
+            blob = exported(label, lambda: open(export_serving.main(argv, log=say), "rb").read())
+            fp_live = live
+        else:
+            live.calibrate(calib)
+            blob = exported(label, lambda: export_visual(live, ARTIFACT_T, 256, 256,
+                                                         batch=batch_axis))
+        counts = artifact_held(torch, label, blob, live, batch, per_backbone)
+        for name, n in counts.items():  # each kernel's count on the first path that runs it
+            if n:
+                launches.setdefault(name, n)
+    launches = {name: launches.get(name, 0) for name in KERNELS}
+
+    # the slice's entry point: cli/serve.py --artifact over phase 4's clips
+    argv = ["--engine", "visual", "--artifact", fp_path, "--input", clip_dir,
+            "--batch_size", str(BATCH_SIZE)]
+    scores = run_cli(torch, workdir, argv, "artifact CLI fp", [], per_call(calls, k1=8))
+    want = np.concatenate([fp_live.score(*_pad_stack(clips[i : i + BATCH_SIZE]))
+                           for i in range(0, len(clips), BATCH_SIZE)])
+    if not np.array_equal(scores, [round(float(w), 6) for w in want]):  # the JSONL's rounding
+        raise AssertionError(f"artifact CLI fp: scores {scores}, live {want}")
+    say("artifact CLI fp: the JSONL scores are the live scorer's, to its 6 places")
+
+    # audio: one program at 16,000 samples against AudioScorer on 64 clips
+    live = AudioScorer.from_bundle(audio_bundle(torch, workdir), device="cuda")
+    blob = exported("audio", lambda: export_audio(live, 16000))
+    waves = (np.random.default_rng(11).normal(0, 0.1, (64, 16000)).astype(np.float32),)
+    artifact_held(torch, "audio", blob, live, waves, dict(k1=8))
+
+    # the daemon over the fp program, and ms per score() against live
+    daemon_traffic(torch, fp_path, fp_live, smi)
+    from multimodal_deepfake_detection_tpu_torch.models.artifact import ArtifactScorer
+
+    art = ArtifactScorer(fp_path)
+    ms, runs = in_turns(torch, {"artifact": lambda: art.score(*batch),
+                                "live": lambda: fp_live.score(*batch)}, 5)
+    frames = ARTIFACT_B * ARTIFACT_T
+    say(f"score() of {ARTIFACT_B} x {ARTIFACT_T} frames at 256^2, bf16, K1 path, two turns of 5: "
+        f"artifact {ms['artifact']:.2f} ms ({frames / ms['artifact'] * 1e3:.1f} frames/s), "
+        f"live {ms['live']:.2f} ms ({frames / ms['live'] * 1e3:.1f} frames/s); turns "
+        f"{ {k: [round(v, 2) for v in r] for k, r in runs.items()} } ({smi})")
+    say(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 SOURCES = {
     "middle_block": ("multimodal_deepfake_detection_tpu_torch/csrc/middle_block.cu",
                      "multimodal_deepfake_detection_tpu/ops/pallas/sepconv_pos.py:80; with fp32 "
@@ -2909,6 +3169,7 @@ SOURCES = {
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     import multimodal_deepfake_detection_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -2929,6 +3190,8 @@ def main() -> int:
         phase_au(torch, workdir, smi)
         phase_train(torch, workdir, smi)
         phase_au_train(torch, workdir, smi)
+        artifact_launches = phase_artifacts(torch, workdir, smi)
+    say(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2950,6 +3213,8 @@ def main() -> int:
             "bound_by": audio_times[name][1][1],
             "library_ms": audio_times[name][0]["library"],
         },
+        # launches per backbone call on the exported program that runs it
+        "artifact": {"launches": artifact_launches[name]},
     } for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

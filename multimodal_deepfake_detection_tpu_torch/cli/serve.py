@@ -43,8 +43,16 @@ their separable pairs through K4; ``--middle_taps bf16`` runs K1 in bf16 tap
 order; ``--fuse_exit true`` runs the exit sepconvs through K5; every option
 goes to both engines of ``av``, and none to the AU engines, which raise
 on them. ``--compute_dtype float32`` scores in IEEE fp32 on the card (TF32
-is off for the duration of each call). Video decoding, AOT artifacts and
-the device mesh are not ported yet.
+is off for the duration of each call).
+
+``--artifact a_T25.ptprog,a_T50.ptprog`` (or a directory of ``.ptprog``
+files) scores through exported programs (``cli/export_serving.py``,
+``models/artifact.py``) instead of a checkpoint, one artifact per serving
+bucket, on the device type they were exported on: weights, quantization,
+routes and preprocessing are baked, so ``--quantize`` and the route flags
+raise with it and the model-width flags are unused. Video decoding (ROADMAP
+item 10b) and ``--use_mesh`` (item 11) are not ported yet; the latter
+raises.
 """
 from __future__ import annotations
 
@@ -96,6 +104,10 @@ class Config:
     # fp path only: the exit sepconvs conv3 and conv4 through K5
     fuse_exit: bool = False
     device: str = "cuda"
+    # serve from exported programs instead of a checkpoint: comma-separated
+    # .ptprog paths and/or directories of them, one per serving bucket
+    artifact: str = ""
+    use_mesh: bool = False  # not ported yet (ROADMAP item 11): raises
 
 
 def parse_config(argv=None) -> Config:
@@ -171,10 +183,29 @@ def _build_au_engine(cfg: Config):
                                      mask_padding=cfg.mask_padding, **common)
 
 
+def _build_artifact_engine(cfg: Config):
+    from ..models.artifact import load_artifact_scorer
+
+    if cfg.quantize:
+        raise ValueError("--quantize is baked at export time; drop it with --artifact")
+    routes = dict(fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
+                  middle_taps=cfg.middle_taps != "fp32", fuse_exit=cfg.fuse_exit)
+    for name, on in routes.items():
+        if on:
+            raise ValueError(f"--{name} is baked at export time; drop it with --artifact")
+    return load_artifact_scorer([p.strip() for p in cfg.artifact.split(",") if p.strip()],
+                                engine=cfg.engine, device=cfg.device)
+
+
 def build_engine(cfg: Config):
     from ..core.precision import parse_dtype
     from ..models.serve import AudioScorer, AVScorer, VisualScorer
 
+    if cfg.use_mesh:
+        raise NotImplementedError("--use_mesh is not ported yet: it waits for ROADMAP item 11 "
+                                  "(multi-device)")
+    if cfg.artifact:
+        return _build_artifact_engine(cfg)
     if cfg.engine in ("au_face", "au_patch"):
         return _build_au_engine(cfg)
     common = dict(

@@ -31,7 +31,12 @@ w8a8 tree (``models/quant.py``).
   Pallas kernels there either.
 
 Clips are padded (or cut) to a length bucket as the JAX engines do, so the
-scores match them; the JAX meshes and jit cache are not ported here.
+scores match them; the JAX meshes and jit cache are not ported here. Each
+engine's ``score()`` prepares its inputs on the host (numpy: buckets,
+padding, default lengths) and calls its ``_score_impl`` on device tensors,
+the counterpart of the JAX ``_score_impl``: the function
+``models/export.py`` exports, so an artifact replays the live path's own
+ops.
 
 The quantization modes are the JAX engines': ``"w8a8"`` (every conv and
 depthwise int8), ``"w8a8-hybrid"`` (int8 entry and exit, the fp middle flow
@@ -59,7 +64,7 @@ from ..core.checkpoint import load_bundle, merge_params
 from ..core.precision import ieee_fp32
 from ..data.collate import bucket_length
 from ..ops.lstm import lstm_apply, select_last_step
-from ..ops.mfcc import mfcc
+from ..ops.mfcc import mfcc, mfcc_constants
 from ..ops.resize import resize_bilinear
 from ..utils.jax_weights import (
     arcface_from_jax,
@@ -264,13 +269,17 @@ class VisualScorer(_XceptionScorer):
         self.mask_padding = mask_padding
         self.buckets = tuple(buckets) if buckets else None
 
-    def _frames_to_x(self, frames_u8: np.ndarray) -> torch.Tensor:
+    def _u8_to_x(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 ``(B, T, H, W, 3)`` on the device -> fp32 / 255 frames ``(B*T,
+        H, W, 3)``, resized bilinearly to ``frame_size`` when it differs."""
         B, T = frames_u8.shape[:2]
-        u8 = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
-        x = u8.reshape((B * T,) + tuple(u8.shape[2:])).float() / 255.0
+        x = frames_u8.reshape((B * T,) + tuple(frames_u8.shape[2:])).float() / 255.0
         if self.frame_size is not None and tuple(x.shape[1:3]) != tuple(self.frame_size):
             x = resize_bilinear(x, self.frame_size)
         return x
+
+    def _frames_to_x(self, frames_u8: np.ndarray) -> torch.Tensor:
+        return self._u8_to_x(torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device))
 
     @_ieee_fp32
     def calibrate(self, frames_u8: np.ndarray, *, refine_passes: int = 0) -> None:
@@ -293,6 +302,18 @@ class VisualScorer(_XceptionScorer):
         B, T = frames_u8.shape[:2]
         return self._backbone_features(self._frames_to_x(frames_u8)).reshape(B, T, -1)
 
+    def _score_impl(self, frames_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The device side of :meth:`score`: uint8 ``(B, T, H, W, 3)`` and
+        integer ``lengths (B,)`` on the scorer's device -> fp32 fake
+        probabilities ``(B,)``; the program ``models/export.py::export_visual``
+        traces."""
+        B, T = frames_u8.shape[:2]
+        feats = self._backbone_features(self._u8_to_x(frames_u8)).reshape(B, T, -1)
+        outputs, _ = lstm_apply(self.lstm, feats, compute_dtype=self.compute_dtype)
+        emb = select_last_step(outputs, lengths.long(), mask_padding=self.mask_padding)
+        logits = arcface_apply(self.arcface_w, emb, s=self.arcface_s)
+        return torch.softmax(logits, dim=-1)[:, 1]
+
     @_ieee_fp32
     @torch.inference_mode()
     def score(self, frames_u8: np.ndarray, lengths: Optional[np.ndarray] = None) -> np.ndarray:
@@ -310,12 +331,9 @@ class VisualScorer(_XceptionScorer):
             elif Tb < T:  # longer than the largest bucket: truncate
                 frames_u8 = frames_u8[:, :Tb]
                 lengths = np.minimum(lengths, Tb)
-        feats = self.frame_features(frames_u8)
-        outputs, _ = lstm_apply(self.lstm, feats, compute_dtype=self.compute_dtype)
-        lengths_t = torch.as_tensor(np.asarray(lengths), dtype=torch.long, device=self.device)
-        emb = select_last_step(outputs, lengths_t, mask_padding=self.mask_padding)
-        logits = arcface_apply(self.arcface_w, emb, s=self.arcface_s)
-        return torch.softmax(logits, dim=-1)[:, 1].cpu().numpy()
+        u8 = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        lengths_t = torch.as_tensor(np.asarray(lengths), device=self.device)
+        return self._score_impl(u8, lengths_t).cpu().numpy()
 
 
 class AudioScorer(_XceptionScorer):
@@ -356,15 +374,21 @@ class AudioScorer(_XceptionScorer):
         self.head = copy.deepcopy(nn.ModuleDict(dict(
             lstm=model.lstm, fc_layers=model.fc_layers, fc_out=model.fc_out))).to(self.device)
         self.mfcc_kw = dict(sr=sr, n_mfcc=n_mfcc, n_fft=n_fft, hop_length=hop_length)
+        self.mfcc_constants = mfcc_constants(self.device, sr=sr, n_mfcc=n_mfcc, n_fft=n_fft)
         self.mask_padding = mask_padding
         self.sample_buckets = tuple(sorted(sample_buckets)) if sample_buckets else None
+
+    def _images(self, waveforms: torch.Tensor, centered: bool) -> Tuple[torch.Tensor, int, int]:
+        """``(B, L)`` fp32 waveforms on the device -> MFCC images ``(B*T, 64,
+        64, 3)`` fp32, ``B``, ``T``."""
+        feats = mfcc(waveforms, center=centered, constants=self.mfcc_constants, **self.mfcc_kw)
+        return mfcc_images(feats), feats.shape[0], feats.shape[1]
 
     def _wave_to_imgs(self, waveforms: np.ndarray, centered: bool) -> Tuple[torch.Tensor, int, int]:
         """``(B, L)`` waveforms -> MFCC images ``(B*T, 64, 64, 3)`` fp32 on the
         device, ``B``, ``T``."""
         w = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
-        feats = mfcc(w, center=centered, **self.mfcc_kw)
-        return mfcc_images(feats), feats.shape[0], feats.shape[1]
+        return self._images(w, centered)
 
     def _prepare(self, waveforms: np.ndarray, frame_lengths: Optional[np.ndarray],
                  sample_lengths: Optional[np.ndarray]):
@@ -447,14 +471,25 @@ class AudioScorer(_XceptionScorer):
             self.calibrate(waveforms)  # implicit first-batch calibration
         waveforms, frame_lengths, centered = self._prepare(waveforms, frame_lengths,
                                                            sample_lengths)
-        imgs, B, T = self._wave_to_imgs(waveforms, centered)
-        feats = self._backbone_features(imgs).reshape(B, T, -1)
+        w = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
         lengths = (None if frame_lengths is None else
-                   torch.as_tensor(np.asarray(frame_lengths), dtype=torch.long, device=self.device))
+                   torch.as_tensor(np.asarray(frame_lengths), device=self.device))
+        return self._score_impl(w, lengths, centered).cpu().numpy()
+
+    def _score_impl(self, waveforms: torch.Tensor, frame_lengths: Optional[torch.Tensor],
+                    centered: bool) -> torch.Tensor:
+        """The device side of :meth:`score`: fp32 waveforms ``(B, L)`` and
+        integer ``frame_lengths (B,)`` (or None: every frame valid) on the
+        scorer's device -> fp32 fake probabilities ``(B,)``; ``centered``:
+        reflect-centre on the device. ``models/export.py::export_audio``
+        traces it with ``centered=True``."""
+        imgs, B, T = self._images(waveforms, centered)
+        feats = self._backbone_features(imgs).reshape(B, T, -1)
+        lengths = None if frame_lengths is None else frame_lengths.long()
         probs = xception_lstm_head_apply(self.head, feats, lengths=lengths,
                                          mask_padding=self.mask_padding,
                                          compute_dtype=self.compute_dtype)
-        return probs[:, 0].cpu().numpy()
+        return probs[:, 0]
 
 
 class AVScorer:
@@ -490,7 +525,18 @@ class AVScorer:
             )
         p_v = self.visual.score(frames_u8, lengths)
         p_a = self.audio.score(waveforms, frame_lengths, sample_lengths=sample_lengths)
+        return self._fuse(torch.from_numpy(p_v), torch.from_numpy(p_a)).numpy()
+
+    def _fuse(self, p_v: torch.Tensor, p_a: torch.Tensor) -> torch.Tensor:
         return self.alpha * p_v + (1.0 - self.alpha) * p_a
+
+    def _score_impl(self, frames_u8: torch.Tensor, lengths: torch.Tensor,
+                    waveforms: torch.Tensor, frame_lengths: torch.Tensor) -> torch.Tensor:
+        """Both engines' device sides and the fusion, the program
+        ``models/export.py::export_av`` traces: the visual one's and the
+        audio one's with ``centered=True``, each under its own precision."""
+        return self._fuse(self.visual._score_impl(frames_u8, lengths),
+                          self.audio._score_impl(waveforms, frame_lengths, True))
 
 
 def load_au_face_bundle(path: str, lstm_hidden: int = 256) -> AUFaceDetector:
@@ -524,13 +570,19 @@ def load_au_patch_bundle(path: str, hidden_dim: int = 128, lstm_hidden: int = 12
     return au_patch_from_jax(params, state)
 
 
-def _prep(u8: np.ndarray, size: Optional[Tuple[int, int]], device) -> torch.Tensor:
-    """uint8 ``(..., H, W, 3)`` -> fp32 / 255 on ``device``, resized
+def _prep_t(u8: torch.Tensor, size: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """uint8 ``(..., H, W, 3)`` on the device -> fp32 / 255, resized
     bilinearly to ``size`` when it differs."""
-    x = torch.from_numpy(np.ascontiguousarray(u8)).to(device).float() / 255.0
+    x = u8.float() / 255.0
     if size is not None and tuple(x.shape[-3:-1]) != tuple(size):
         x = resize_bilinear(x, size)
     return x
+
+
+def _prep(u8: np.ndarray, size: Optional[Tuple[int, int]], device) -> torch.Tensor:
+    """uint8 ``(..., H, W, 3)`` -> fp32 / 255 on ``device``, resized
+    bilinearly to ``size`` when it differs."""
+    return _prep_t(torch.from_numpy(np.ascontiguousarray(u8)).to(device), size)
 
 
 def _pad_time(arr: np.ndarray, Tb: int) -> np.ndarray:
@@ -649,8 +701,9 @@ class AUFaceScorer(_ResNetScorer):
                   "au_backbone": self._flat("au_backbone", np.asarray(au_patches_u8))}
         self._calibrate_on(xs, refine_passes)
 
-    def _forward(self, videos_u8, au_patches_u8, au_mask, au_weight):
-        """The bucketed forward -> ``(logits, v_tokens, au_tokens, T, Ta)``."""
+    def _inputs(self, videos_u8, au_patches_u8, au_mask, au_weight) -> tuple:
+        """The host side: the bucketed inputs as device tensors and both
+        valid lengths, ``(videos, patches, mask, weight, T, Ta)``."""
         if self.quantize is not None and self.qbackbones is None:
             self.calibrate(videos_u8, au_patches_u8)  # implicit first-batch calibration
         B, T = videos_u8.shape[:2]
@@ -665,12 +718,27 @@ class AUFaceScorer(_ResNetScorer):
             au_mask, au_weight = _pad_time(au_mask, Tab), _pad_time(au_weight, Tab)
             T, Ta = min(T, Tb), min(Ta, Tab)
         tensor = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-        out = au_face_detector_apply(
-            self.model, _prep(videos_u8, self.sizes["face_backbone"], self.device),
-            _prep(au_patches_u8, self.sizes["au_backbone"], self.device), tensor(au_mask),
-            tensor(au_weight), v_valid=T, au_valid=Ta, compute_dtype=self.compute_dtype,
+        u8 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return u8(videos_u8), u8(au_patches_u8), tensor(au_mask), tensor(au_weight), T, Ta
+
+    def _apply(self, videos_u8, au_patches_u8, au_mask, au_weight, v_valid: int, au_valid: int):
+        """The detector on device tensors -> ``(logits, v_tokens, au_tokens)``."""
+        return au_face_detector_apply(
+            self.model, _prep_t(videos_u8, self.sizes["face_backbone"]),
+            _prep_t(au_patches_u8, self.sizes["au_backbone"]), au_mask, au_weight,
+            v_valid=v_valid, au_valid=au_valid, compute_dtype=self.compute_dtype,
             **self._backbone_fns())
-        return out + (T, Ta)
+
+    def _score_impl(self, videos_u8: torch.Tensor, au_patches_u8: torch.Tensor,
+                    au_mask: torch.Tensor, au_weight: torch.Tensor, v_valid: int,
+                    au_valid: int) -> torch.Tensor:
+        """The device side of :meth:`score`: uint8 faces and AU patches, fp32
+        ``au_mask`` and ``au_weight`` on the scorer's device and the valid
+        lengths of both time axes -> fp32 fake probabilities ``(B,)``; the
+        program ``models/export.py::export_au_face`` traces, with the
+        lengths baked."""
+        logits = self._apply(videos_u8, au_patches_u8, au_mask, au_weight, v_valid, au_valid)[0]
+        return torch.sigmoid(logits[:, 0].float())
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -680,8 +748,8 @@ class AUFaceScorer(_ResNetScorer):
         """``videos_u8 (B, T, H, W, 3)`` and ``au_patches_u8 (B, Ta, A, h, w, 3)``
         uint8, ``au_mask`` / ``au_weight (B, Ta, A)`` (ones by default) -> fake
         probabilities ``(B,)``."""
-        logits = self._forward(videos_u8, au_patches_u8, au_mask, au_weight)[0]
-        return torch.sigmoid(logits[:, 0].float()).cpu().numpy()
+        inputs = self._inputs(videos_u8, au_patches_u8, au_mask, au_weight)
+        return self._score_impl(*inputs).cpu().numpy()
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -690,8 +758,9 @@ class AUFaceScorer(_ResNetScorer):
               au_weight: Optional[np.ndarray] = None) -> torch.Tensor:
         """The pooled embedding the head reads: the fp32 masked means of both
         token streams, concatenated, ``(B, 4 * lstm_hidden)``."""
-        _, v_tokens, au_tokens, T, Ta = self._forward(videos_u8, au_patches_u8, au_mask,
-                                                      au_weight)
+        inputs = self._inputs(videos_u8, au_patches_u8, au_mask, au_weight)
+        _, v_tokens, au_tokens = self._apply(*inputs)
+        T, Ta = inputs[4:]
         return torch.cat([masked_mean(v_tokens, T), masked_mean(au_tokens, Ta)], dim=-1)
 
 
@@ -737,7 +806,9 @@ class AUPatchScorer(_ResNetScorer):
             x = self._flat("backbone", np.asarray(patches_u8))
         self._calibrate_on({"backbone": x}, refine_passes)
 
-    def _forward(self, patches_u8, au_weights, lengths, return_pooled):
+    def _inputs(self, patches_u8, au_weights, lengths) -> tuple:
+        """The host side: the bucketed inputs as device tensors ``(patches,
+        weights, lengths)``."""
         if self.quantize is not None and self.qbackbones is None:
             self.calibrate(patches_u8)  # implicit first-batch calibration
         B, T, A = patches_u8.shape[:3]
@@ -749,12 +820,24 @@ class AUPatchScorer(_ResNetScorer):
             Tb = bucket_length(T, self.buckets)
             patches_u8, au_weights = _pad_time(patches_u8, Tb), _pad_time(au_weights, Tb)
             lengths = np.minimum(lengths, Tb)
+        return (torch.from_numpy(np.ascontiguousarray(patches_u8)).to(self.device),
+                torch.as_tensor(np.asarray(au_weights, np.float32), device=self.device),
+                torch.as_tensor(np.asarray(lengths), device=self.device))
+
+    def _apply(self, patches_u8, au_weights, lengths, return_pooled: bool):
         return au_patch_classifier_apply(
-            self.model, _prep(patches_u8, self.sizes["backbone"], self.device),
-            torch.as_tensor(np.asarray(au_weights, np.float32), device=self.device),
-            lengths=torch.as_tensor(np.asarray(lengths), dtype=torch.long, device=self.device),
-            mask_padding=self.mask_padding, compute_dtype=self.compute_dtype,
-            return_pooled=return_pooled, **self._backbone_fns())
+            self.model, _prep_t(patches_u8, self.sizes["backbone"]), au_weights,
+            lengths=lengths.long(), mask_padding=self.mask_padding,
+            compute_dtype=self.compute_dtype, return_pooled=return_pooled,
+            **self._backbone_fns())
+
+    def _score_impl(self, patches_u8: torch.Tensor, au_weights: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+        """The device side of :meth:`score`: uint8 patches, fp32 weights and
+        integer lengths on the scorer's device -> fp32 fake probabilities
+        ``(B,)``; the program ``models/export.py::export_au_patch`` traces."""
+        logits = self._apply(patches_u8, au_weights, lengths, False)
+        return torch.sigmoid(logits[:, 0].float())
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -763,12 +846,11 @@ class AUPatchScorer(_ResNetScorer):
         """``patches_u8 (B, T, A, h, w, 3)`` uint8, ``au_weights (B, T, A)``
         (ones by default), ``lengths (B,)`` (T by default) -> fake
         probabilities ``(B,)``."""
-        logits = self._forward(patches_u8, au_weights, lengths, False)
-        return torch.sigmoid(logits[:, 0].float()).cpu().numpy()
+        return self._score_impl(*self._inputs(patches_u8, au_weights, lengths)).cpu().numpy()
 
     @_ieee_fp32
     @torch.inference_mode()
     def embed(self, patches_u8: np.ndarray, au_weights: Optional[np.ndarray] = None,
               lengths: Optional[np.ndarray] = None) -> torch.Tensor:
         """The fp32 pooled embedding before the classifier, ``(B, 2 * lstm_hidden)``."""
-        return self._forward(patches_u8, au_weights, lengths, True)
+        return self._apply(*self._inputs(patches_u8, au_weights, lengths), True)

@@ -6,6 +6,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 source in ``csrc/`` and the flags, so an edited source rebuilds. Nothing here
 falls back: without ``nvcc`` or a CUDA device the loader raises.
 :func:`launch` is the one place a wrapper calls its kernel from.
+``library.py`` registers each wrapper's CPU and CUDA implementations as a
+``torch.ops.mdfd`` custom op.
 """
 from __future__ import annotations
 
@@ -80,6 +82,15 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing or stale, then load it."""
     build(name)
     return ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest()}.so"))
+
+
+def op_device(x: torch.Tensor) -> bool:
+    """Whether a wrapper sends ``x`` through its ``torch.ops.mdfd`` op
+    (``library.py``): a CPU or CUDA tensor, real or the fake one that
+    ``torch.export`` traces with. A tensor on any other device goes straight
+    to the CUDA implementation, whose checks raise: the op's fake kernel
+    would answer a meta tensor with an empty result."""
+    return x.device.type in ("cpu", "cuda")
 
 
 def launch(lib: ctypes.CDLL, entry: str, x: torch.Tensor, *args) -> None:

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..quant import quantize
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 
 
 def dw_w8a8_ref(
@@ -86,17 +86,10 @@ def _check(x, w_q, s_in, sc, out_dtype) -> None:
                              f"and on {x.device}")
 
 
-def dw_w8a8(x: torch.Tensor, w_q: torch.Tensor, s_in: torch.Tensor, sc: torch.Tensor,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """int8 depthwise 3x3 (stride 1, zero pad 1) on NHWC ``x`` -> ``out_dtype``.
-
-    ``w_q (C, 1, 3, 3)`` int8, ``s_in`` fp32 scalar or ``(C,)``, ``sc (C,)``
-    fp32 (``s_dq * s_w``). A CPU tensor takes :func:`dw_w8a8_ref`; a CUDA
-    tensor launches the kernel or raises. ``dw_w8a8.launches`` counts kernel
-    launches.
-    """
-    if x.device.type == "cpu":
-        return dw_w8a8_ref(x, w_q, s_in, sc, out_dtype)
+def launch_dw_w8a8(x: torch.Tensor, w_q: torch.Tensor, s_in: torch.Tensor, sc: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """The CUDA implementation of ``mdfd::dw_w8a8``: launches the kernel (or
+    raises) and counts the launch."""
     C = x.shape[-1]
     s_in = s_in.float().expand(C).contiguous() if s_in.numel() == 1 else s_in
     _check(x, w_q, s_in, sc, out_dtype)
@@ -108,6 +101,21 @@ def dw_w8a8(x: torch.Tensor, w_q: torch.Tensor, s_in: torch.Tensor, sc: torch.Te
            N, H, W, C, int(x.dtype == torch.float32), int(out_dtype == torch.float32))
     dw_w8a8.launches += 1
     return out
+
+
+def dw_w8a8(x: torch.Tensor, w_q: torch.Tensor, s_in: torch.Tensor, sc: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """int8 depthwise 3x3 (stride 1, zero pad 1) on NHWC ``x`` -> ``out_dtype``,
+    through the custom op ``torch.ops.mdfd.dw_w8a8``.
+
+    ``w_q (C, 1, 3, 3)`` int8, ``s_in`` fp32 scalar or ``(C,)``, ``sc (C,)``
+    fp32 (``s_dq * s_w``). A CPU tensor takes :func:`dw_w8a8_ref`; a CUDA
+    tensor launches the kernel or raises. ``dw_w8a8.launches`` counts kernel
+    launches.
+    """
+    if op_device(x):
+        return torch.ops.mdfd.dw_w8a8(x, w_q, s_in, sc, out_dtype)
+    return launch_dw_w8a8(x, w_q, s_in, sc, out_dtype)
 
 
 dw_w8a8.launches = 0

@@ -42,7 +42,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 from ._plain import check_operands, pad_rows, pointwise_ref
 from .entry_pair import check_pair, entry_pair_ref, pack_pair
 
@@ -84,18 +84,9 @@ def _check(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb) -> None:
     ))
 
 
-def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
-    """One stride-2 block on NHWC ``x (N, H, W, Cin)`` -> ``(N, (H+1)//2,
-    (W+1)//2, Cout)`` in x's dtype; operands as :func:`pack_entry_block`
-    returns them.
-
-    A CPU tensor takes :func:`entry_block_ref`. A CUDA tensor launches the
-    kernel or raises: there is no fallback. ``entry_block.launches`` counts
-    kernel launches (one per call: the block's four CUDA launches).
-    """
-    if x.device.type == "cpu":
-        return entry_block_ref(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb,
-                               leading_relu0=leading_relu0)
+def launch_entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, leading_relu0: bool):
+    """The CUDA implementation of ``mdfd::entry_block``: launches the kernel
+    (or raises) and counts the launch."""
     _check(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb)
     lib = _lib()
     N, H, W, Cin = x.shape
@@ -110,6 +101,22 @@ def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool)
            N, H, W, Cin, Cmid, Cout, ldk0, ldk1, int(leading_relu0), int(x.dtype == torch.float32))
     entry_block.launches += 1
     return out
+
+
+def entry_block(x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, *, leading_relu0: bool):
+    """One stride-2 block on NHWC ``x (N, H, W, Cin)`` -> ``(N, (H+1)//2,
+    (W+1)//2, Cout)`` in x's dtype, through the custom op
+    ``torch.ops.mdfd.entry_block``; operands as :func:`pack_entry_block`
+    returns them.
+
+    A CPU tensor takes :func:`entry_block_ref`. A CUDA tensor launches the
+    kernel or raises: there is no fallback. ``entry_block.launches`` counts
+    kernel launches (one per call: the block's four CUDA launches).
+    """
+    args = (x, dw0, pw0, b0, dw1, pw1, b1, skw, skb, leading_relu0)
+    if op_device(x):
+        return torch.ops.mdfd.entry_block(*args)
+    return launch_entry_block(*args)
 
 
 entry_block.launches = 0

@@ -43,7 +43,7 @@ import functools
 
 import torch
 
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 from ._plain import check_operands, check_widths, check_x, depthwise3x3_ref, pointwise_ref
 from .sepconv_unit import pack_unit
 
@@ -100,20 +100,10 @@ def check_pair(kernel: str, x, dw0, pw0, b0, dw1, pw1, b1) -> None:
     ))
 
 
-def entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_sums: bool = True,
-               mid_fp32: bool = False):
-    """The separable pair on NHWC ``x (N, H, W, Cin)`` -> ``(N, H, W, Cout)``
-    in x's dtype; operands as :func:`pack_pair` returns them. The defaults
-    are ``entry_pair_pallas``'s switches.
-
-    A CPU tensor takes :func:`entry_pair_ref`. A CUDA tensor launches the
-    kernel or raises: there is no fallback. ``entry_pair.launches`` counts
-    kernel launches (one per call: the pair's two CUDA launches, one per
-    unit).
-    """
-    kw = dict(leading_relu0=leading_relu0, col_sums=col_sums, mid_fp32=mid_fp32)
-    if x.device.type == "cpu":
-        return entry_pair_ref(x, dw0, pw0, b0, dw1, pw1, b1, **kw)
+def launch_entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, leading_relu0: bool, col_sums: bool,
+                      mid_fp32: bool) -> torch.Tensor:
+    """The CUDA implementation of ``mdfd::entry_pair``: launches the kernel
+    (or raises) and counts the launch."""
     check_pair("entry_pair", x, dw0, pw0, b0, dw1, pw1, b1)
     lib = _lib()
     N, H, W, Cin = x.shape
@@ -127,6 +117,24 @@ def entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_sums: 
            int(x.dtype == torch.float32))
     entry_pair.launches += 1
     return out
+
+
+def entry_pair(x, dw0, pw0, b0, dw1, pw1, b1, *, leading_relu0: bool, col_sums: bool = True,
+               mid_fp32: bool = False):
+    """The separable pair on NHWC ``x (N, H, W, Cin)`` -> ``(N, H, W, Cout)``
+    in x's dtype, through the custom op ``torch.ops.mdfd.entry_pair``;
+    operands as :func:`pack_pair` returns them. The defaults are
+    ``entry_pair_pallas``'s switches.
+
+    A CPU tensor takes :func:`entry_pair_ref`. A CUDA tensor launches the
+    kernel or raises: there is no fallback. ``entry_pair.launches`` counts
+    kernel launches (one per call: the pair's two CUDA launches, one per
+    unit).
+    """
+    args = (x, dw0, pw0, b0, dw1, pw1, b1, leading_relu0, col_sums, mid_fp32)
+    if op_device(x):
+        return torch.ops.mdfd.entry_pair(*args)
+    return launch_entry_pair(*args)
 
 
 entry_pair.launches = 0

@@ -45,7 +45,7 @@ import functools
 
 import torch
 
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 from ._plain import (
     check_operands,
     check_widths,
@@ -109,18 +109,10 @@ def _check(x, dw, pw, b) -> None:
     ))
 
 
-def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor,
-                 *, taps: str = "fp32"):
-    """One middle-flow block on NHWC ``x`` -> same shape and dtype.
-
-    A CPU tensor takes :func:`middle_block_ref`. A CUDA tensor launches the
-    kernel or raises: there is no fallback. ``middle_block.launches`` counts
-    launches with fp32 taps, ``middle_block_bf16taps.launches`` those with
-    ``taps="bf16"``.
-    """
-    _order(taps)
-    if x.device.type == "cpu":
-        return middle_block_ref(x, dw, pw, b, taps=taps)
+def launch_middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor,
+                        taps: str) -> torch.Tensor:
+    """The CUDA implementation of ``mdfd::middle_block``: launches the kernel
+    (or raises) and counts the launch."""
     _check(x, dw, pw, b)
     lib = _lib()
     N, H, W, C = x.shape
@@ -133,6 +125,22 @@ def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.T
            int(taps == "bf16"))
     (middle_block_bf16taps if taps == "bf16" else middle_block).launches += 1
     return out
+
+
+def middle_block(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor,
+                 *, taps: str = "fp32"):
+    """One middle-flow block on NHWC ``x`` -> same shape and dtype, through
+    the custom op ``torch.ops.mdfd.middle_block`` (``library.py``).
+
+    A CPU tensor takes :func:`middle_block_ref`. A CUDA tensor launches the
+    kernel or raises: there is no fallback. ``middle_block.launches`` counts
+    launches with fp32 taps, ``middle_block_bf16taps.launches`` those with
+    ``taps="bf16"``.
+    """
+    _order(taps)
+    if op_device(x):
+        return torch.ops.mdfd.middle_block(x, dw, pw, b, taps)
+    return launch_middle_block(x, dw, pw, b, taps)
 
 
 def middle_block_bf16taps(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, b: torch.Tensor):

@@ -33,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 
 PW_ROW_ALIGN = 64  # bytes of int8: the GEMM's operand rows start on 64-byte boundaries
 
@@ -118,15 +118,9 @@ def _check(x, dw, pw_q, s_w, s_in, s_dq, b) -> None:
                              f"and on {x.device}")
 
 
-def middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b):
-    """One int8-pointwise middle-flow block on NHWC ``x`` -> same shape and dtype.
-
-    Operands as :func:`middle_block_w8_ref`. A CPU tensor takes the plain
-    version. A CUDA tensor launches the kernel or raises: there is no
-    fallback. ``middle_block_w8.launches`` counts kernel launches.
-    """
-    if x.device.type == "cpu":
-        return middle_block_w8_ref(x, dw, pw_q, s_w, s_in, s_dq, b)
+def launch_middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b) -> torch.Tensor:
+    """The CUDA implementation of ``mdfd::middle_block_w8``: launches the
+    kernel (or raises) and counts the launch."""
     _check(x, dw, pw_q, s_w, s_in, s_dq, b)
     lib = _lib()
     N, H, W, C = x.shape
@@ -140,6 +134,19 @@ def middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b):
            int(x.dtype == torch.float32))
     middle_block_w8.launches += 1
     return out
+
+
+def middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b):
+    """One int8-pointwise middle-flow block on NHWC ``x`` -> same shape and
+    dtype, through the custom op ``torch.ops.mdfd.middle_block_w8``.
+
+    Operands as :func:`middle_block_w8_ref`. A CPU tensor takes the plain
+    version. A CUDA tensor launches the kernel or raises: there is no
+    fallback. ``middle_block_w8.launches`` counts kernel launches.
+    """
+    if op_device(x):
+        return torch.ops.mdfd.middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b)
+    return launch_middle_block_w8(x, dw, pw_q, s_w, s_in, s_dq, b)
 
 
 middle_block_w8.launches = 0

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from ._build import launch, load_library
+from ._build import launch, load_library, op_device
 from ._plain import (
     check_operands,
     check_widths,
@@ -80,17 +80,9 @@ def _check(x, dw, pw, b) -> None:
     ))
 
 
-def sepconv_unit(x, dw, pw, b, *, leading_relu: bool, trailing_relu: bool):
-    """One separable unit on NHWC ``x (N, H, W, Cin)`` -> ``(N, H, W, Cout)``
-    in x's dtype; operands as :func:`pack_unit` returns them.
-
-    A CPU tensor takes :func:`sepconv_unit_ref`. A CUDA tensor launches the
-    kernel or raises: there is no fallback. ``sepconv_unit.launches`` counts
-    kernel launches (one per call: the unit's two CUDA launches).
-    """
-    if x.device.type == "cpu":
-        return sepconv_unit_ref(x, dw, pw, b, leading_relu=leading_relu,
-                                trailing_relu=trailing_relu)
+def launch_sepconv_unit(x, dw, pw, b, leading_relu: bool, trailing_relu: bool) -> torch.Tensor:
+    """The CUDA implementation of ``mdfd::sepconv_unit``: launches the kernel
+    (or raises) and counts the launch."""
     _check(x, dw, pw, b)
     lib = _lib()
     N, H, W, Cin = x.shape
@@ -103,6 +95,20 @@ def sepconv_unit(x, dw, pw, b, *, leading_relu: bool, trailing_relu: bool):
            int(x.dtype == torch.float32))
     sepconv_unit.launches += 1
     return out
+
+
+def sepconv_unit(x, dw, pw, b, *, leading_relu: bool, trailing_relu: bool):
+    """One separable unit on NHWC ``x (N, H, W, Cin)`` -> ``(N, H, W, Cout)``
+    in x's dtype, through the custom op ``torch.ops.mdfd.sepconv_unit``;
+    operands as :func:`pack_unit` returns them.
+
+    A CPU tensor takes :func:`sepconv_unit_ref`. A CUDA tensor launches the
+    kernel or raises: there is no fallback. ``sepconv_unit.launches`` counts
+    kernel launches (one per call: the unit's two CUDA launches).
+    """
+    if op_device(x):
+        return torch.ops.mdfd.sepconv_unit(x, dw, pw, b, leading_relu, trailing_relu)
+    return launch_sepconv_unit(x, dw, pw, b, leading_relu, trailing_relu)
 
 
 sepconv_unit.launches = 0

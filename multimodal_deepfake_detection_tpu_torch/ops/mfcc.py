@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -87,15 +88,30 @@ def power_to_db(S: torch.Tensor, *, amin: float = 1e-10, top_db: float = 80.0) -
     return torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - top_db)
 
 
+def mfcc_constants(device, *, sr: int = 16000, n_mfcc: int = 13, n_fft: int = 400,
+                   n_mels: int = 128) -> tuple:
+    """:func:`mfcc`'s constants on ``device``: the periodic Hann window, the
+    mel filterbank and the DCT, fp32. A scorer makes them once, so that an
+    exported program holds them as constants of its own device rather than
+    host arrays it copies each call."""
+    window = np.hanning(n_fft + 1)[:-1].astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in
+                 (window, mel_filterbank(sr, n_fft, n_mels), dct_matrix(n_mfcc, n_mels)))
+
+
 def mfcc(y: torch.Tensor, *, sr: int = 16000, n_mfcc: int = 13, n_fft: int = 400,
-         hop_length: int = 160, n_mels: int = 128, center: bool = True) -> torch.Tensor:
+         hop_length: int = 160, n_mels: int = 128, center: bool = True,
+         constants: Optional[tuple] = None) -> torch.Tensor:
     """Waveform ``(..., samples)`` -> fp32 MFCC ``(..., frames, n_mfcc)``,
     ``librosa.feature.mfcc(...).T``. ``center=False`` skips the reflect
-    pre-pad, for callers that centre on the host (the bucketed serving path)."""
+    pre-pad, for callers that centre on the host (the bucketed serving path).
+    ``constants``: :func:`mfcc_constants` of these settings on y's device
+    (made here when None)."""
+    if constants is None:
+        constants = mfcc_constants(y.device, sr=sr, n_mfcc=n_mfcc, n_fft=n_fft, n_mels=n_mels)
+    window, mel, dct = constants
     with ieee_fp32():
         frames = frame_signal(y.float(), n_fft, hop_length, center=center)
-        window = torch.from_numpy(np.hanning(n_fft + 1)[:-1].astype(np.float32)).to(y.device)
         spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
-        mel = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(y.device)
         db = power_to_db(spec.abs() ** 2 @ mel.T)
-        return db @ torch.from_numpy(dct_matrix(n_mfcc, n_mels)).to(y.device).T
+        return db @ dct.T

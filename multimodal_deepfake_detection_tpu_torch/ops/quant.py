@@ -46,13 +46,14 @@ def _int_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a (M, K) @ w (N, K)^T`` in int8 -> exact int32 ``(M, N)``.
 
     cuBLASLt, behind ``torch._int_mm`` on CUDA, takes M > 16 and K, N
-    multiples of 8: K pads with zero columns (conv1's 27 -> 32) and small M
-    with zero rows (the 1x1 exit flow of a 32^2 input has M = N). Both pads
-    add nothing to the sums.
+    multiples of 8: K pads with zero columns (conv1's 27 -> 32) and, on CUDA,
+    small M with zero rows (the 1x1 exit flow of a 32^2 input has M = N; the
+    CPU's ``_int_mm`` takes any M, so an exported program's symbolic batch
+    meets no test of M there). Both pads add nothing to the sums.
     """
     M, K = a.shape
     pad_k = -K % 8
-    pad_m = 32 - M if M <= 16 else 0
+    pad_m = 32 - M if a.is_cuda and M <= 16 else 0
     if pad_k or pad_m:
         a = F.pad(a, (0, pad_k, 0, pad_m))
         w = F.pad(w, (0, pad_k))

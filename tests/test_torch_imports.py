@@ -39,7 +39,7 @@ from multimodal_deepfake_detection_tpu_torch.utils.jax_weights import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCKED_IMPORT = """
+_BLOCKER = """
 import sys
 
 class _Block:
@@ -49,6 +49,15 @@ class _Block:
         return None
 
 sys.meta_path.insert(0, _Block())
+"""
+_NO_JAX_LOADED = """
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+_BLOCKED_IMPORT = _BLOCKER + """
 import multimodal_deepfake_detection_tpu_torch.models.serve
 import multimodal_deepfake_detection_tpu_torch.cli.serve
 import multimodal_deepfake_detection_tpu_torch.models.resnet
@@ -85,6 +94,14 @@ import multimodal_deepfake_detection_tpu_torch.cli.train_au_patch
 import multimodal_deepfake_detection_tpu_torch.cli.train_au_face
 import multimodal_deepfake_detection_tpu_torch.data.au_patches
 import multimodal_deepfake_detection_tpu_torch.data.metadata
+import multimodal_deepfake_detection_tpu_torch.ops.kernels.library
+import multimodal_deepfake_detection_tpu_torch.models.export
+import multimodal_deepfake_detection_tpu_torch.models.artifact
+import multimodal_deepfake_detection_tpu_torch.serving
+import multimodal_deepfake_detection_tpu_torch.serving.batcher
+import multimodal_deepfake_detection_tpu_torch.serving.daemon
+import multimodal_deepfake_detection_tpu_torch.cli.export_serving
+import multimodal_deepfake_detection_tpu_torch.cli.serve_daemon
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
@@ -114,11 +131,32 @@ train_au_face.main(["--video_root", root + "/jv", "--au_root", root + "/ja", "--
 train_audio.main(["--train_folder", root + "/mfcc/train", "--eval_folder", root + "/mfcc/eval",
                   "--checkpoint_dir", root + "/ca", "--hidden_dim", "4", "--batch_size", "2",
                   "--buckets", "3", "--eval_every", "1"] + common, log=lambda s: None)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "optax", "multimodal_deepfake_detection_tpu"))
-assert not loaded, loaded
-print("ok")
-"""
+""" + _NO_JAX_LOADED
+
+# one tiny export under the blocker, in a process of its own: beside the
+# four trainers it pushed the import check past its hang guard when six
+# test workers loaded the machine
+_BLOCKED_EXPORT = _BLOCKER + """
+import numpy as np
+from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
+from multimodal_deepfake_detection_tpu_torch.models.artifact import ArtifactScorer
+from multimodal_deepfake_detection_tpu_torch.models.export import export_au_patch
+scorer = build_engine(Config(engine="au_patch", ckpt_path=sys.argv[1] + "/au_patch.npz",
+                             device="cpu", patch_hidden=8, patch_lstm_hidden=4))
+patches = np.zeros((1, 2, 2, 8, 8, 3), np.uint8)
+assert ArtifactScorer(export_au_patch(scorer, 2, 2, (8, 8), batch=1)).score(patches) == \
+    scorer.score(patches)
+""" + _NO_JAX_LOADED
+
+
+def _run_blocked(script: str, tmp_path) -> None:
+    # one intra-op thread: beside five other test workers, one per core
+    # oversubscribes the cores and the run slows several times
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_port_imports_without_jax(tmp_path):
@@ -131,11 +169,16 @@ def test_port_imports_without_jax(tmp_path):
                 dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))
     save_bundle(str(tmp_path / "au_patch.npz"), dict(zip(("model", "state"), au_patch_to_jax(
         AUPatchClassifier(8, 4, generator=g)))))
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(tmp_path)], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    _run_blocked(_BLOCKED_IMPORT, tmp_path)
+
+
+def test_port_exports_without_jax(tmp_path):
+    """With JAX blocked, the CLI's AU-patch engine exports a program
+    (``models/export.py``) that replays through ``ArtifactScorer`` to its
+    live scores."""
+    save_bundle(str(tmp_path / "au_patch.npz"), dict(zip(("model", "state"), au_patch_to_jax(
+        AUPatchClassifier(8, 4, generator=torch.Generator().manual_seed(0))))))
+    _run_blocked(_BLOCKED_EXPORT, tmp_path)
 
 
 def test_loader_raises_without_nvcc(monkeypatch):

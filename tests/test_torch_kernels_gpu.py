@@ -16,7 +16,10 @@ kernel paths are held against its plain paths. The AU engines, which run
 no kernel of the port's own, are held in bf16 against their plain fp32
 path on the card (per-image features and the pooled embedding cos >= 0.999,
 scores within 2e-2), and in fp32 against the CPU (rtol 1e-3 / atol 2e-4,
-scores atol 1e-4).
+scores atol 1e-4). Programs exported on the card (``models/export.py``)
+replay through the kernels (8 K1 launches on the visual and audio ones)
+and score within one bf16 ulp (2^-8 relative) of their live scorers, which
+they equal on the card's runs so far.
 """
 import numpy as np
 import pytest
@@ -617,3 +620,53 @@ def test_au_fp32_scorer_is_ieee_under_default_flags(cuda_default_flags, engine):
     torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=2e-4)
     torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=2e-4)
     np.testing.assert_allclose(got[0], ref[0], atol=1e-4)
+
+
+def test_fp_artifact_replays_through_k1(cuda):
+    """A visual artifact exported on the card (bf16, symbolic batch) holds 8
+    K1 nodes, and replaying it launches K1 8 times per backbone call and
+    scores as the live scorer does (the same ops in the same order)."""
+    from multimodal_deepfake_detection_tpu_torch.models.artifact import ArtifactScorer
+    from multimodal_deepfake_detection_tpu_torch.models.export import export_visual, kernel_nodes
+
+    g = torch.Generator().manual_seed(0)
+    live = VisualScorer(XceptionLSTM(8, generator=g), ArcFace(8, 2, generator=g), device=cuda)
+    art = ArtifactScorer(export_visual(live, 2, 64, 64))
+    (program,) = art.programs.values()
+    assert kernel_nodes(program) == {"middle_block": 8}
+    frames = np.random.default_rng(0).integers(0, 256, (3, 2, 64, 64, 3), dtype=np.uint8)
+    middle_block.launches = 0
+    got = art.score(frames)
+    torch.cuda.synchronize()
+    assert middle_block.launches == 8
+    np.testing.assert_allclose(got, live.score(frames), rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.parametrize("engine", ["audio", "au_patch", "au_face"])
+def test_artifacts_of_the_other_engines_replay_on_the_card(cuda, engine):
+    """Each engine's program, exported on the card (bf16, symbolic batch),
+    scores as its live scorer does; the audio one through K1, 8 launches."""
+    from multimodal_deepfake_detection_tpu_torch.models import export as E
+    from multimodal_deepfake_detection_tpu_torch.models.artifact import ArtifactScorer
+
+    g = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    if engine == "audio":
+        live = AudioScorer(XceptionLSTM(8, generator=g), device=cuda)
+        blob, args = E.export_audio(live, 1600), (rng.normal(0, 0.1, (3, 1600)).astype(np.float32),)
+    elif engine == "au_patch":
+        live = AUPatchScorer(AUPatchClassifier(8, 4, generator=g), device=cuda)
+        blob = E.export_au_patch(live, 3, 2, (32, 32))
+        args = (rng.integers(0, 256, (3, 3, 2, 32, 32, 3), dtype=np.uint8),
+                rng.random((3, 3, 2)).astype(np.float32), np.array([3, 2, 1]))
+    else:
+        live = AUFaceScorer(AUFaceDetector(4, generator=g), device=cuda)
+        blob = E.export_au_face(live, 3, 2, 2, (64, 64), (32, 32))
+        args = (rng.integers(0, 256, (3, 3, 64, 64, 3), dtype=np.uint8),
+                rng.integers(0, 256, (3, 2, 2, 32, 32, 3), dtype=np.uint8))
+    art = ArtifactScorer(blob)
+    middle_block.launches = 0
+    got = art.score(*args)
+    torch.cuda.synchronize()
+    assert middle_block.launches == (8 if engine == "audio" else 0)
+    np.testing.assert_allclose(got, live.score(*args), rtol=2.0 ** -8, atol=0)
