@@ -120,7 +120,26 @@ raises and exits non-zero:
    16, max_wait 5 ms, warm-up 8 x 256^2): 64 single-clip npz requests from
    16 threads over HTTP to 127.0.0.1, each score held against the clip scored
    alone (with the rotated-pairing control), requests/s and p50/p99; then ms
-   per ``score()`` of the program against the live scorer, in turns.
+   per ``score()`` of the program against the live scorer, in turns;
+11. evaluation (``cli/test_visual.py``, ``test_audio.py``,
+   ``test_av_fused.py``, ``test_au_patch.py``, ``test_au_face.py``), which
+   launch no kernel (the JAX test CLIs run the unfolded eval-BN models on
+   XLA convs): phase 4's visual bundle, phase 6's audio bundle and phase
+   7's AU bundles, over seeded npy trees (8 face clips of 224^2 in lengths
+   across the buckets 25/50/75, 8 MFCC clips of 50-120 steps of the same
+   stems, 6 AU-patch stacks and 6 face + AU pairs of 5-16 steps, 17 AUs,
+   128^2); each CLI at its defaults on the card in bf16 and fp32, counted
+   (0 launches of every kernel), its report printed; bf16 against fp32
+   scores; the scoring loop timed (clips/s, bundle load excluded, peak
+   memory) beside the forward alone on one batch on the card, and the
+   unfolded visual forward against the serving engine's BN-folded plain
+   path; the card's fp32 scores against the CPU's at a frame cut (the CPU
+   at the defaults would score 600 frames of 224^2 a CLI); the saliency
+   maps of test_visual, test_au_patch and test_au_face through
+   ``input_saliency`` (peak memory of one default batch; the card's bf16
+   and fp32 maps at the cut against the CPU's, each with a control, the
+   next clip's maps); the CLIs' ``--saliency_dir`` and ``--tsne`` only
+   where matplotlib and scikit-learn are installed.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
@@ -3168,6 +3187,341 @@ SOURCES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: evaluation (cli/test_visual, test_audio, test_av_fused,
+# test_au_patch, test_au_face). No TPU kernel lies on it: the JAX test CLIs
+# score through the unfolded eval-BN Xception and ResNet-18s on XLA convs;
+# here cuDNN and cuBLAS, and no mdfd op.
+# ---------------------------------------------------------------------------
+
+EVAL_VISUAL_T = (20, 40, 60, 75, 10, 30, 50, 70)  # 224^2 faces across the buckets 25/50/75
+EVAL_MFCC_T = (120, 100, 80, 60, 110, 90, 70, 50)  # MFCC steps, bucket 120
+EVAL_AU_T = (16, 9, 5, 12, 7, 14)  # face and AU-patch stacks of 17 AUs at 128^2 (t-SNE needs 6)
+# the card's fp32 scores against the CPU's run at a frame cut (the CLIs'
+# own flags, the same on both): at the defaults the CPU would score 600
+# frames of 224^2 and 4,080 AU patches of 128^2 per CLI
+EVAL_CPU_CUT = {
+    "test_visual": ["--max_frames", "4", "--buckets", "4"],
+    "test_audio": ["--buckets", "16"],
+    "test_av_fused": ["--max_frames", "4", "--video_buckets", "4", "--audio_buckets", "16"],
+    "test_au_patch": ["--max_frames", "4"],
+    "test_au_face": ["--max_frames", "4"],
+}
+EVAL_CPU_TOL = 1e-4  # card fp32 (IEEE) against CPU fp32 scores
+# saliency: ||card - CPU fp32|| / ||CPU fp32|| over the cut's first batch,
+# (fp32 bar, bf16 bar); each control (the CPU maps of the batch's next clip)
+# must fail its bar
+EVAL_SAL_BARS = (1e-2, 0.25)
+
+
+def write_eval_trees(workdir: str) -> dict:
+    """Seeded npy trees of the test CLIs: face clips (``EVAL_VISUAL_T`` at
+    224^2) and MFCC clips (``EVAL_MFCC_T``) of the same stems (also the AV
+    pairs); AU-patch stacks and face + AU pairs (``EVAL_AU_T``, 17 AUs,
+    128^2) under their splits."""
+    rng = np.random.default_rng(111)
+    names = [f"{c}_{i}" for i in range(4) for c in ("real", "fake")]
+    dirs = {k: os.path.join(workdir, "eval", k) for k in ("faces", "mfcc", "patches", "jv", "ja")}
+    for k in ("faces", "mfcc"):
+        os.makedirs(dirs[k])
+    for k in ("patches", "jv", "ja"):
+        for split in ("train", "eval", "test"):
+            os.makedirs(os.path.join(dirs[k], split))
+    for name, tv, ta in zip(names, EVAL_VISUAL_T, EVAL_MFCC_T):
+        np.save(os.path.join(dirs["faces"], f"{name}.npy"),
+                rng.integers(0, 256, (tv, 224, 224, 3), dtype=np.uint8))
+        np.save(os.path.join(dirs["mfcc"], f"{name}.npy"),
+                rng.normal(0, 20, (ta, 13)).astype(np.float32))
+    for name, t in zip(names, EVAL_AU_T):
+        for root, split in ((dirs["patches"], "test"), (dirs["ja"], "eval")):
+            np.save(os.path.join(root, split, f"{name}.npy"),
+                    rng.integers(0, 256, (t, NUM_AUS, PATCH, PATCH, 3), dtype=np.uint8))
+            np.save(os.path.join(root, split, f"{name}_weights.npy"),
+                    rng.dirichlet(np.ones(NUM_AUS), size=t).astype(np.float32))
+        np.save(os.path.join(dirs["jv"], "eval", f"{name}.npy"),
+                rng.integers(0, 256, (t, PATCH, PATCH, 3), dtype=np.uint8))
+    return dirs
+
+
+def eval_argv(workdir: str, dirs: dict, bundles: dict) -> dict:
+    """Each CLI's inputs; every other flag at its default."""
+    return {
+        "test_visual": ["--test_folder", dirs["faces"], "--ckpt_path", bundles["visual"]],
+        "test_audio": ["--test_folder", dirs["mfcc"], "--ckpt_path", bundles["audio"]],
+        "test_av_fused": ["--video_folder", dirs["faces"], "--audio_folder", dirs["mfcc"],
+                          "--visual_ckpt", bundles["visual"], "--audio_ckpt", bundles["audio"]],
+        "test_au_patch": ["--data_root", dirs["patches"], "--ckpt_path", bundles["au_patch"]],
+        "test_au_face": ["--video_root", dirs["jv"], "--au_root", dirs["ja"], "--ckpt_path",
+                         bundles["au_face"], "--output_dir", os.path.join(workdir, "eval", "out")],
+    }
+
+
+def eval_setup(name: str, mod, argv: list):
+    """The CLI's config, scorer and loader from ``argv`` (bundle load and
+    model build here), and ``run() -> (labels, {stream: scores})``: its
+    scoring loop, with au_face's scores before any sign flip."""
+    config = mod.parse_config(mod.Config, argv, prog=name)
+    quiet = lambda s: None  # noqa: E731
+    if name == "test_visual":
+        scorer, loader = mod.build_scorer(config), mod.make_loader(config)
+
+        def run():
+            _results, y, s = mod.evaluate(scorer, loader)
+            return y, {"score": s}
+    elif name == "test_audio":
+        scorer, loader = mod.build_scorer(config, log=quiet), mod.make_loader(config)
+
+        def run():
+            y, s = mod.evaluate(scorer, loader)
+            return y, {"score": s}
+    elif name == "test_av_fused":
+        scorer, loader = mod.build_scorer(config), mod.make_loader(config, quiet)
+
+        def run():
+            y, p_v, p_a = mod.evaluate(scorer, loader)
+            return y, {"visual": p_v, "audio": p_a,
+                       "fused": config.alpha * p_v + (1 - config.alpha) * p_a}
+    elif name == "test_au_patch":
+        scorer, loader = mod.load_model(config, log=quiet), mod.make_loader(config)
+
+        def run():
+            y, s, _ = mod.evaluate(scorer, loader)
+            return y, {"score": s}
+    else:
+        scorer, loader = mod.load_detector_flexible(config, quiet), mod.make_loader(config)
+
+        def run():
+            face, au, y, s = mod.collect_features(loader, scorer)
+            return y, {"score": s, "face_token": face, "au_token": au}
+    return config, scorer, loader, run
+
+
+def saliency_inputs(name: str, scorer, batch):
+    """The device inputs of the CLI's saliency (the frames first) for one
+    host batch of its loader."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import to_device
+
+    if name == "test_visual":
+        video, _labels, lengths = batch
+        return to_device((video, lengths), scorer.device)
+    if name == "test_au_patch":
+        patches, weights, _labels, lengths = batch
+        return to_device((patches, weights, lengths), scorer.device)
+    videos, patches, _labels, au_mask, au_weight, _lengths = batch
+    return to_device((videos, patches, au_mask, au_weight), scorer.device)
+
+
+def saliency_maps(torch, name: str, scorer, batch):
+    """``input_saliency`` of the CLI's scorer on one batch, as the CLI's
+    ``--saliency_dir`` computes it -> fp64 host maps."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import precision
+    from multimodal_deepfake_detection_tpu_torch.utils.saliency import input_saliency
+
+    with precision(scorer.cdtype):
+        maps = input_saliency(scorer.probs, *saliency_inputs(name, scorer, batch))
+    return maps.double().cpu().numpy()
+
+
+def device_forward(torch, name: str, scorer, batch):
+    """The CLI's forward on one batch already on the card, without gradients
+    (what its scoring loop runs per batch, less the host's loading, collation
+    and copies)."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import precision, to_device
+
+    if name == "test_av_fused":
+        (videos, audios, a_len), _labels, v_len = batch
+        args = to_device((videos, v_len, audios, a_len), scorer.device)
+        fn = scorer.probs
+    elif name == "test_audio":
+        mfcc, _labels, lengths = batch
+        args, fn = to_device((mfcc, lengths), scorer.device), scorer.probs
+    elif name == "test_au_face":
+        args, fn = saliency_inputs(name, scorer, batch), scorer.run
+    else:
+        args, fn = saliency_inputs(name, scorer, batch), scorer.probs
+
+    def run():
+        with torch.no_grad(), precision(scorer.cdtype):
+            return fn(*args)
+    return run
+
+
+def folded_against_unfolded(torch, scorer, batch, smi: str) -> None:
+    """test_visual's unfolded eval-BN forward against the serving engine's
+    BN-folded plain path (cuDNN and cuBLAS, no kernel) on the same batch, on
+    the card, in turns."""
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    video, _labels, lengths = batch
+    folded = VisualScorer(scorer.model, scorer.arcface, device=scorer.device, use_kernels=False,
+                          compute_dtype=scorer.cdtype)
+    u8 = torch.from_numpy(np.rint(video * 255.0).astype(np.uint8)).to(scorer.device)
+    n = torch.from_numpy(lengths).to(scorer.device)
+
+    def run_folded():
+        with torch.inference_mode():
+            return folded._score_impl(u8, n)
+    unfolded = device_forward(torch, "test_visual", scorer, batch)
+    means, _ = in_turns(torch, {"unfolded": unfolded, "folded": run_folded}, 3)
+    d = float((unfolded().float() - run_folded().float()).abs().max())
+    frames = video.shape[0] * video.shape[1]
+    say(f"test_visual bf16, one batch of {video.shape[0]} x {video.shape[1]} frames at "
+        f"{video.shape[2]}^2 on the card: unfolded eval BN {means['unfolded']:.2f} ms "
+        f"({frames / means['unfolded'] * 1e3:.1f} frames/s), the BN-folded plain path "
+        f"{means['folded']:.2f} ms ({frames / means['folded'] * 1e3:.1f} frames/s): "
+        f"{means['unfolded'] / means['folded']:.2f}x; scores max|d| {d:.3e} ({smi})")
+
+
+def rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def eval_cli(torch, name: str, mod, argv: list, smi: str, extras: dict) -> None:
+    """One CLI: its report at the defaults on the card in bf16 and fp32
+    (``extras``: each run's output flags), counted; bf16 against fp32
+    scores; the scoring loop timed; the card's fp32 scores against the
+    CPU's at the cut; the saliency maps on the card against the CPU's."""
+    mib = 1024.0 ** 2
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        report = []
+        flags = ["--compute_dtype", dtype] + extras[dtype]
+        counted(torch, f"{name} {dtype}", lambda: mod.main(argv + flags, log=report.append),
+                per_call(0))
+        say(f"{name} {dtype} report: " + " | ".join(
+            line.strip() for line in report if line.strip() and "->" not in line))
+        _, scorer, loader, run = eval_setup(name, mod, argv + ["--compute_dtype", dtype])
+        run()  # warm-up: cuDNN's algorithm picks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        labels, scores = run()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / mib
+        runs[dtype] = (labels, scores)
+        batch = next(iter(loader))
+        forward = device_forward(torch, name, scorer, batch)
+        dev_ms = in_turns(torch, {"forward": forward}, 3)[0]["forward"]
+        say(f"{name} {dtype} at the defaults: scoring loop {dt * 1e3:.2f} ms for {len(labels)} "
+            f"clips in {len(loader)} batches, {len(labels) / dt:.2f} clips/s, peak memory "
+            f"{peak:.1f} MiB (bundle load excluded); the forward alone on one batch already on "
+            f"the card {dev_ms:.2f} ms ({smi})")
+        if name == "test_visual" and dtype == "bfloat16":
+            folded_against_unfolded(torch, scorer, batch, smi)
+        if name in ("test_visual", "test_au_patch", "test_au_face") and dtype == "bfloat16":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            maps = saliency_maps(torch, name, scorer, batch)
+            dt = time.perf_counter() - t0
+            say(f"{name} saliency of the first batch at the defaults (shape {maps.shape}, "
+                f"batch not cut): {dt * 1e3:.2f} ms, peak memory "
+                f"{torch.cuda.max_memory_allocated() / mib:.1f} MiB ({smi})")
+            if not np.isfinite(maps).all() or maps.max() <= 0:
+                raise AssertionError(f"{name}: saliency maps not finite and positive")
+        del scorer, loader, run, forward
+    (yb, sb), (yf, sf) = runs["bfloat16"], runs["float32"]
+    if yb.tolist() != yf.tolist():
+        raise AssertionError(f"{name}: bf16 and fp32 labels differ")
+    for k in sb:  # the scores held, au_face's mean tokens read
+        d = float(np.abs(sb[k] - sf[k]).max())
+        held_k = not k.endswith("_token")
+        say(f"{name} bf16 against fp32 {k}: max|d| {d:.3e}"
+            + (f" (<= {SCORE_TOL:.0e})" if held_k else ""))
+        if held_k and not d <= SCORE_TOL:
+            raise AssertionError(f"{name}: bf16 {k} off fp32 by {d}")
+    if name == "test_au_face":
+        say("test_au_face sign flip: bf16 " + str(mod.sign_flip(yb, sb["score"], log=say))
+            + ", fp32 " + str(mod.sign_flip(yf, sf["score"], log=say)))
+
+    # the card's fp32 against the CPU's, at the cut
+    cut = argv + EVAL_CPU_CUT[name] + ["--compute_dtype", "float32"]
+    setups = {dev: eval_setup(name, mod, cut + ["--device", dev]) for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    (yc, sc), (yg, sg) = setups["cpu"][3](), setups["cuda"][3]()
+    if yc.tolist() != yg.tolist():
+        raise AssertionError(f"{name}: card and CPU labels differ")
+    for k in sc:
+        d = float(np.abs(sg[k] - sc[k]).max())
+        say(f"{name} card fp32 against CPU fp32 {k} ({len(yc)} clips, cut "
+            f"{' '.join(EVAL_CPU_CUT[name])}): max|d| {d:.3e} (<= {EVAL_CPU_TOL:.0e})")
+        if not d <= EVAL_CPU_TOL:
+            raise AssertionError(f"{name}: card fp32 {k} off the CPU's by {d}")
+    if name == "test_au_face":
+        say(f"test_au_face sign flip at the cut: card {mod.sign_flip(yg, sg['score'], log=say)}"
+            f", CPU {mod.sign_flip(yc, sc['score'], log=say)}")
+    if name in ("test_visual", "test_au_patch", "test_au_face"):
+        _, cpu_scorer, cpu_loader, _ = setups["cpu"]
+        batch = next(iter(cpu_loader))
+        ref = saliency_maps(torch, name, cpu_scorer, batch)
+        for dtype, bar in zip(("float32", "bfloat16"), EVAL_SAL_BARS):
+            _, scorer, _, _ = (setups["cuda"] if dtype == "float32" else
+                               eval_setup(name, mod, argv + EVAL_CPU_CUT[name]))
+            got = saliency_maps(torch, name, scorer, batch)
+            err, ctl = rel_l2(got, ref), rel_l2(got, np.roll(ref, 1, axis=0))
+            say(f"{name} saliency, card {dtype} against CPU fp32 (shape {ref.shape}): relative "
+                f"L2 {err:.3e} (<= {bar:g}); control (the CPU maps of the batch's next clip) "
+                f"{ctl:.3e}")
+            if not err <= bar:
+                raise AssertionError(f"{name}: card {dtype} saliency off the CPU's by {err}")
+            if ctl <= bar:
+                raise AssertionError(f"{name}: the saliency control passes its bar ({ctl})")
+    say(f"{name}: card against CPU in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_eval(torch, workdir: str, smi: str) -> None:
+    """The test CLIs at full width (phase 11)."""
+    import importlib.util
+
+    from multimodal_deepfake_detection_tpu_torch.cli import (
+        test_au_face,
+        test_au_patch,
+        test_audio,
+        test_av_fused,
+        test_visual,
+    )
+
+    t_phase = time.perf_counter()
+    bundles = {"visual": visual_inputs(torch, workdir)[0], "audio": audio_bundle(torch, workdir)}
+    au = {e: os.path.join(workdir, f"{e}.npz") for e in ("au_face", "au_patch")}
+    if not all(os.path.exists(p) for p in au.values()):
+        au = write_au_bundles(torch, workdir)
+    bundles.update(au)
+    dirs = write_eval_trees(workdir)
+    argvs = eval_argv(workdir, dirs, bundles)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    tsne = plots and importlib.util.find_spec("sklearn") is not None
+    say(f"evaluation: matplotlib {'found' if plots else 'absent'}, scikit-learn "
+        f"{'found' if tsne else 'absent'}: the CLIs' --saliency_dir "
+        f"{'runs' if plots else 'is skipped'}, test_au_face's --tsne "
+        f"{'runs' if tsne else 'is off'}")
+    sal_dir = lambda n: ["--saliency_dir", os.path.join(workdir, "eval", f"sal_{n}")]  # noqa
+    extras = {  # the bf16 run writes every output the packages allow, the fp32 run none
+        "test_visual": (sal_dir("visual") if plots else [], []),
+        "test_audio": ([], []),
+        "test_av_fused": (["--save_scores", os.path.join(workdir, "eval", "av.npz")], []),
+        "test_au_patch": ((sal_dir("au_patch") if plots else []) + [
+            "--save_embeddings", os.path.join(workdir, "eval", "emb.npz")], []),
+        "test_au_face": ((sal_dir("au_face") if plots else []) + ["--tsne", str(tsne).lower()],
+                         ["--tsne", "false"]),
+    }
+    for name, mod in (("test_visual", test_visual), ("test_audio", test_audio),
+                      ("test_av_fused", test_av_fused), ("test_au_patch", test_au_patch),
+                      ("test_au_face", test_au_face)):
+        t0 = time.perf_counter()
+        eval_cli(torch, name, mod, argvs[name], smi,
+                 dict(zip(("bfloat16", "float32"), extras[name])))
+        say(f"{name} took {time.perf_counter() - t0:.1f} s")
+    if plots:
+        pngs = sorted(os.path.relpath(os.path.join(d, f), workdir)
+                      for d, _, fs in os.walk(os.path.join(workdir, "eval")) for f in fs
+                      if f.endswith(".png"))
+        say(f"evaluation PNGs: {pngs}")
+        if len(pngs) != 3 + 3 * tsne:
+            raise AssertionError(f"expected 3 saliency PNGs and the t-SNE plots, got {pngs}")
+    say(f"phase 11 (evaluation) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3191,6 +3545,7 @@ def main() -> int:
         phase_train(torch, workdir, smi)
         phase_au_train(torch, workdir, smi)
         artifact_launches = phase_artifacts(torch, workdir, smi)
+        phase_eval(torch, workdir, smi)
     say(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -32,13 +32,13 @@ with the same ``Config`` fields and defaults:
 
 It trains on ``--device cuda`` unless asked for ``cpu``, and raises if the
 device is missing; ``--compute_dtype float32`` runs IEEE fp32 (TF32 off).
-``--resume`` takes a ``train_au_face_state.pt`` snapshot. Not ported yet,
-and raising when asked for: the orbax backend (ROADMAP Queue 1 item 11),
-``--jsonl_log`` and ``--tracker`` (item 12).
+``--resume`` takes a ``train_au_face_state.pt`` snapshot. ``--jsonl_log``
+and ``--tracker`` log each epoch as in JAX (``utils/metric_logger.py``).
+Not ported yet, and raising when asked for: the orbax backend (ROADMAP
+Queue 1 item 11).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from typing import Optional, Tuple
@@ -49,7 +49,7 @@ from torch import nn
 
 from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
-from ..core.precision import at_least_f32, ieee_fp32, parse_dtype
+from ..core.precision import at_least_f32, parse_dtype
 from ..data.au_patches import get_joint_dataloader
 from ..data.loader import DataLoader
 from ..metrics import compute_acc_ap_and_counts, pick_threshold
@@ -66,7 +66,14 @@ from ..models.losses import (
 from ..train import TrainLoop, TrainState, ema_init, make_optimizer, onecycle_schedule
 from ..train.steps import SwappedParams, make_eval_step, make_train_step
 from ..utils.jax_weights import save_au_face_bundle
-from .common import raise_unported, resolve_device, step_generator, to_device
+from .common import (
+    epoch_logger,
+    precision,
+    raise_unported,
+    resolve_device,
+    step_generator,
+    to_device,
+)
 
 
 @dataclasses.dataclass
@@ -120,8 +127,6 @@ class Config:
 
 _NOT_PORTED = {
     "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-    "jsonl_log": "the metric loggers (ROADMAP Queue 1 item 12)",
-    "tracker": "the metric loggers (ROADMAP Queue 1 item 12)",
 }
 
 
@@ -217,7 +222,6 @@ def build(config: Config):
         raise ValueError("face_dim and au_dim are the biLSTM's output width, 2 * lstm_hidden")
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
-    precision = ieee_fp32 if cdtype == torch.float32 else contextlib.nullcontext
     train_l, test_l, eval_l = get_joint_dataloader(
         config.video_root, config.au_root, csv_path=config.csv_path,
         lavdf_mode=config.lavdf_mode, lavdf_json_path=config.lavdf_json_path,
@@ -250,11 +254,11 @@ def build(config: Config):
     raw_eval_step = make_eval_step(eval_forward, use_ema_params=True, keep_current=("arcface",))
 
     def train_step(state, batch, rng_seed, epoch):
-        with precision():
+        with precision(cdtype):
             return raw_train_step(state, to_device(batch, device), rng_seed)
 
     def eval_step(state, batch):
-        with precision():
+        with precision(cdtype):
             return raw_eval_step(state, to_device(batch, device))
 
     return (LoopLoader(train_l), LoopLoader(eval_l), LoopLoader(test_l), state, train_step,
@@ -287,9 +291,13 @@ def main(argv=None, *, log=print):
         save_best(best_path, state, result.eval_metrics["AUC"])
         log(f"New best AUC: {result.eval_metrics['AUC']:.4f} - Model saved.")
 
+    metric_logger = epoch_logger(config, "train_au_face")
+
     def on_epoch(state, result):
         if config.save_resume_state:
             save_state(resume_path, state)
+        if metric_logger is not None:
+            metric_logger.log_epoch(result)
         if result.eval_scores is None or not result.eval_scores[0].size:
             return
         y, s = result.eval_scores
@@ -317,6 +325,8 @@ def main(argv=None, *, log=print):
         seed=config.seed,
     )
     history = loop.run()
+    if metric_logger is not None:
+        metric_logger.close()
     log("Training Complete.")
     return history
 

@@ -19,13 +19,12 @@ The metric probabilities keep the reference's temperatures:
 the scorers serve ``sigmoid(logits)``. It trains on ``--device cuda``
 unless asked for ``cpu``, and raises if the device is missing;
 ``--compute_dtype float32`` runs IEEE fp32 (TF32 off). ``--resume`` takes a
-``train_au_patch_state.pt`` snapshot. Not ported yet, and raising when
-asked for: the orbax backend (ROADMAP Queue 1 item 11), ``--jsonl_log`` and
-``--tracker`` (item 12).
+``train_au_patch_state.pt`` snapshot. ``--jsonl_log`` and ``--tracker``
+log each epoch as in JAX (``utils/metric_logger.py``). Not ported yet, and
+raising when asked for: the orbax backend (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from typing import Optional, Tuple
@@ -34,14 +33,14 @@ import torch
 
 from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
-from ..core.precision import at_least_f32, ieee_fp32, parse_dtype
+from ..core.precision import at_least_f32, parse_dtype
 from ..data.au_patches import get_patch_image_loaders
 from ..models.losses import label_smoothing_bce_loss
 from ..models.resnet_lstm import AUPatchClassifier, au_patch_classifier_apply
 from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import save_au_patch_bundle
-from .common import raise_unported, resolve_device, to_device
+from .common import epoch_logger, precision, raise_unported, resolve_device, to_device
 
 TRAIN_TEMP = 7.0  # the reference's metric temperature in training
 EVAL_TEMP = 2.0  # and in eval
@@ -93,8 +92,6 @@ class Config:
 
 _NOT_PORTED = {
     "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-    "jsonl_log": "the metric loggers (ROADMAP Queue 1 item 12)",
-    "tracker": "the metric loggers (ROADMAP Queue 1 item 12)",
 }
 
 
@@ -140,7 +137,6 @@ def build(config: Config):
     raise_unported(config, _NOT_PORTED)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
-    precision = ieee_fp32 if cdtype == torch.float32 else contextlib.nullcontext
     train_l, test_l, eval_l = get_patch_image_loaders(
         config.data_root, mode=config.mode, csv_path=config.csv_path,
         lavdf_json=config.lavdf_json, include_unmatched_real=config.include_unmatched_real,
@@ -168,11 +164,11 @@ def build(config: Config):
     raw_train_step, raw_eval_step = make_train_step(train_forward), make_eval_step(eval_forward)
 
     def train_step(state, batch, rng_seed, epoch):
-        with precision():
+        with precision(cdtype):
             return raw_train_step(state, to_device(batch, device), rng_seed)
 
     def eval_step(state, batch):
-        with precision():
+        with precision(cdtype):
             return raw_eval_step(state, to_device(batch, device))
 
     return (LoopLoader(train_l), LoopLoader(eval_l), LoopLoader(test_l), state, train_step,
@@ -194,9 +190,13 @@ def main(argv=None, *, log=print):
         save_au_patch_bundle(best_path, state.model)
         log(f"model saved -> {best_path}")
 
+    metric_logger = epoch_logger(config, "train_au_patch")
+
     def on_epoch(state, result):
         if config.save_resume_state:
             save_state(resume_path, state)
+        if metric_logger is not None:
+            metric_logger.log_epoch(result)
 
     loop = TrainLoop(
         train_step=train_step,
@@ -216,6 +216,8 @@ def main(argv=None, *, log=print):
         seed=config.seed,
     )
     history = loop.run()
+    if metric_logger is not None:
+        metric_logger.close()
     log("Training Complete.")
     return history
 

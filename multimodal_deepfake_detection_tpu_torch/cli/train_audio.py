@@ -22,13 +22,13 @@ once and trains the head on them (it needs the frozen backbone and implies
 ``--backbone_bn_eval``); ``--remat true`` recomputes each backbone block in
 the backward. ``--resume`` takes a ``train_audio_state.pt`` snapshot.
 
-Not ported yet, and raising when asked for: ``--native_loader`` (the ctypes
-npy collate, ROADMAP Queue 1 item 13b), the orbax backend (item 11),
-``--jsonl_log`` and ``--tracker`` (item 12).
+``--jsonl_log`` and ``--tracker`` log each epoch as in JAX
+(``utils/metric_logger.py``). Not ported yet, and raising when asked for:
+``--native_loader`` (the ctypes npy collate, ROADMAP Queue 1 item 13b) and
+the orbax backend (item 11).
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import os
@@ -38,7 +38,7 @@ import torch
 
 from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
-from ..core.precision import ieee_fp32, parse_dtype
+from ..core.precision import parse_dtype
 from ..data.datasets import NpyFolderDataset
 from ..data.loader import DataLoader
 from ..models.heads import XceptionLSTM, xception_lstm_features, xception_lstm_head_apply
@@ -47,7 +47,14 @@ from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.feature_cache import FeatureCachingLoader
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import save_audio_bundle
-from .common import raise_unported, resolve_device, step_generator, to_device
+from .common import (
+    epoch_logger,
+    precision,
+    raise_unported,
+    resolve_device,
+    step_generator,
+    to_device,
+)
 
 
 @dataclasses.dataclass
@@ -87,8 +94,6 @@ class Config:
 _NOT_PORTED = {
     "native_loader": "the ctypes npy collate, data/native_loader.py (ROADMAP Queue 1 item 13b)",
     "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-    "jsonl_log": "the metric loggers (ROADMAP Queue 1 item 12)",
-    "tracker": "the metric loggers (ROADMAP Queue 1 item 12)",
 }
 BUNDLE_NAME = "best_model_audio.npz"
 
@@ -130,7 +135,6 @@ def build(config: Config, train_ds=None, eval_ds=None):
     check_config(config)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
-    precision = ieee_fp32 if cdtype == torch.float32 else contextlib.nullcontext
 
     train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="audio")
     eval_ds = eval_ds or NpyFolderDataset(config.eval_folder, kind="audio")
@@ -148,7 +152,7 @@ def build(config: Config, train_ds=None, eval_ds=None):
 
         @torch.no_grad()
         def feat_fn(x):
-            with precision():
+            with precision(cdtype):
                 feats, _ = xception_lstm_features(feat_src, to_device((x,), device)[0],
                                                   mode="audio", compute_dtype=cdtype)
             return feats.float().cpu().numpy()
@@ -171,11 +175,11 @@ def build(config: Config, train_ds=None, eval_ds=None):
     frozen = ("backbone",) if config.freeze_backbone else ()
 
     def train_step(state, batch, rng_seed, epoch):
-        with precision():
+        with precision(cdtype):
             return raw_train_step(state, to_device(batch, device), rng_seed, frozen)
 
     def eval_step(state, batch):
-        with precision():
+        with precision(cdtype):
             return raw_eval_step(state, to_device(batch, device))
 
     return train_loader, eval_loader, state, train_step, eval_step
@@ -199,9 +203,13 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
         save_audio_bundle(best_path, state.model)
         log(f"new best model saved -> {best_path}")
 
+    metric_logger = epoch_logger(config, "train_audio")
+
     def on_epoch(state, result):
         if config.save_resume_state:
             save_state(resume_path, state)
+        if metric_logger is not None:
+            metric_logger.log_epoch(result)
 
     loop = TrainLoop(
         train_step=train_step,
@@ -222,6 +230,8 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
         seed=config.seed,
     )
     history = loop.run()
+    if metric_logger is not None:
+        metric_logger.close()
     log("Training Finished!")
     return history
 

@@ -24,14 +24,15 @@ evaluates margin-free, as serving scores). ``--cache_features true``
 cache of the eval-BN backbone; ``--remat true`` recomputes each block's
 activations in the backward.
 
-Not ported yet, and raising when asked for: the video dataset modes and
-their flags (decode; ROADMAP Queue 1 item 10), the orbax backend (item 11),
-``--jsonl_log`` and ``--tracker`` (item 12). The train-state snapshot for
-``--resume`` is a ``torch.save`` file, ``train_visual_state.pt``.
+``--jsonl_log`` writes one JSON object per epoch and ``--tracker`` adds
+TensorBoard or wandb sinks (``utils/metric_logger.py``), as in JAX. Not
+ported yet, and raising when asked for: the video dataset modes and their
+flags (decode; ROADMAP Queue 1 item 10b) and the orbax backend (item 11).
+The train-state snapshot for ``--resume`` is a ``torch.save`` file,
+``train_visual_state.pt``.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import os
@@ -42,7 +43,7 @@ import torch
 
 from ..core.checkpoint import load_state, save_bundle, save_state
 from ..core.config import parse_config
-from ..core.precision import ieee_fp32, parse_dtype
+from ..core.precision import parse_dtype
 from ..data.datasets import NpyFolderDataset
 from ..data.loader import DataLoader
 from ..models.heads import (
@@ -56,7 +57,7 @@ from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.feature_cache import PhaseSwitchLoader, _EpochCounter
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import arcface_to_jax, xception_lstm_to_jax
-from .common import raise_unported, resolve_device, to_device
+from .common import epoch_logger, precision, raise_unported, resolve_device, to_device
 
 
 @dataclasses.dataclass
@@ -113,16 +114,14 @@ class Config:
 
 # fields whose piece of the JAX package is not ported yet: (the item it waits for)
 _NOT_PORTED = {
-    "csv_path": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "lavdf_json": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "use_face_detection": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "frame_size": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "augment_minority": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "sample_percentage": "the video dataset modes (ROADMAP Queue 1 item 10)",
-    "num_workers": "the video dataset modes (ROADMAP Queue 1 item 10)",
+    "csv_path": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "lavdf_json": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "use_face_detection": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "frame_size": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "augment_minority": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "sample_percentage": "the video dataset modes (ROADMAP Queue 1 item 10b)",
+    "num_workers": "the video dataset modes (ROADMAP Queue 1 item 10b)",
     "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-    "jsonl_log": "the metric loggers (ROADMAP Queue 1 item 12)",
-    "tracker": "the metric loggers (ROADMAP Queue 1 item 12)",
 }
 
 
@@ -131,7 +130,7 @@ def check_config(config: Config) -> None:
     if config.mode != "npy":
         raise NotImplementedError(
             f"--mode {config.mode}: only 'npy' is ported; the video modes wait for the "
-            "video decode (ROADMAP Queue 1 item 10)")
+            "video decode (ROADMAP Queue 1 item 10b)")
     raise_unported(config, _NOT_PORTED)
     if config.cache_features:
         if config.freeze_epochs <= 0:
@@ -182,7 +181,6 @@ def build(config: Config, train_ds=None, eval_ds=None):
     check_config(config)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
-    precision = ieee_fp32 if cdtype == torch.float32 else contextlib.nullcontext
 
     train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="video",
                                             max_frames=config.max_frames)
@@ -205,7 +203,7 @@ def build(config: Config, train_ds=None, eval_ds=None):
 
         @torch.no_grad()
         def feat_fn(x):
-            with precision():
+            with precision(cdtype):
                 x = to_device((x,), device)[0]
                 feats, _ = xception_lstm_features(feat_src, x, mode="video", compute_dtype=cdtype)
             return feats.float().cpu().numpy()
@@ -237,12 +235,12 @@ def build(config: Config, train_ds=None, eval_ds=None):
     def train_step(state, batch, rng_seed, epoch):
         frozen_now = epoch < config.freeze_epochs
         step = raw_train_step_bneval if (frozen_now and backbone_bn_eval) else raw_train_step
-        with precision():
+        with precision(cdtype):
             return step(state, to_device(batch, device), rng_seed,
                         ("backbone",) if frozen_now else ())
 
     def eval_step(state, batch):
-        with precision():
+        with precision(cdtype):
             return raw_eval_step(state, to_device(batch, device))
 
     return train_loader, eval_loader, state, train_step, eval_step
@@ -270,9 +268,13 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
         save_visual_bundle(best_path, state.model)
         log(f"new best model saved -> {best_path}")
 
+    metric_logger = epoch_logger(config, "train_visual")
+
     def on_epoch(state, result):
         if config.save_resume_state:
             save_state(resume_path, state)
+        if metric_logger is not None:
+            metric_logger.log_epoch(result)
 
     loop = TrainLoop(
         train_step=train_step,
@@ -293,6 +295,8 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
         seed=config.seed,
     )
     history = loop.run()
+    if metric_logger is not None:
+        metric_logger.close()
     log("Training finished.")
     return history
 

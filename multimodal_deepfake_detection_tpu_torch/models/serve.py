@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,32 +111,36 @@ def _ieee_fp32(method):
     return run
 
 
-def _merge_xception_lstm(bundle: dict, hidden_dim: int, g: torch.Generator) -> XceptionLSTM:
-    """``model`` merged strictly onto a freshly initialised XceptionLSTM tree
-    of the same shapes, so no initial value survives; ``state`` leniently
-    (missing BN statistics keep their init, mean 0 and var 1), as the JAX
-    loaders do."""
+def merge_xception_lstm(bundle: dict, hidden_dim: int, g: torch.Generator, *,
+                        strict: bool = True) -> XceptionLSTM:
+    """``model`` merged onto a freshly initialised XceptionLSTM tree of the
+    same shapes, strictly by default, so no initial value survives (with
+    ``strict=False`` missing weights keep the port's init from ``g``);
+    ``state`` leniently (missing BN statistics keep their init, mean 0 and
+    var 1), as the JAX loaders do."""
     params, state = xception_lstm_to_jax(XceptionLSTM(hidden_dim, generator=g))
-    params = merge_params(params, bundle["model"], strict=True)
+    params = merge_params(params, bundle["model"], strict=strict)
     if "state" in bundle:
         state = merge_params(state, bundle["state"], strict=False)
     return xception_lstm_from_jax(params, state)
 
 
-def load_visual_bundle(path: str, hidden_dim: int = 128) -> Tuple[XceptionLSTM, ArcFace]:
+def load_visual_bundle(path: str, hidden_dim: int = 128, *, strict: bool = True,
+                       seed: int = 0) -> Tuple[XceptionLSTM, ArcFace]:
     """Read a JAX ``train_visual`` bundle ``{model, arcface[, state]}``;
-    ``arcface`` merges strictly too."""
-    g = torch.Generator().manual_seed(0)
+    ``arcface`` merges as ``model`` does (:func:`merge_xception_lstm`, the
+    initial trees drawn from ``seed``)."""
+    g = torch.Generator().manual_seed(seed)
     bundle = load_bundle(path)
-    model = _merge_xception_lstm(bundle, hidden_dim, g)
+    model = merge_xception_lstm(bundle, hidden_dim, g, strict=strict)
     arc = merge_params(arcface_to_jax(ArcFace(hidden_dim, 2, generator=g)), bundle["arcface"],
-                       strict=True)
+                       strict=strict)
     return model, arcface_from_jax(arc)
 
 
 def load_audio_bundle(path: str, hidden_dim: int = 512) -> XceptionLSTM:
     """Read a JAX ``train_audio`` bundle ``{model[, state]}``."""
-    return _merge_xception_lstm(load_bundle(path), hidden_dim, torch.Generator().manual_seed(0))
+    return merge_xception_lstm(load_bundle(path), hidden_dim, torch.Generator().manual_seed(0))
 
 
 def mfcc_images(feats: torch.Tensor) -> torch.Tensor:
@@ -539,19 +543,26 @@ class AVScorer:
                           self.audio._score_impl(waveforms, frame_lengths, True))
 
 
-def load_au_face_bundle(path: str, lstm_hidden: int = 256) -> AUFaceDetector:
+def load_au_face_bundle(path: str, lstm_hidden: int = 256, *, strict: bool = True,
+                        seed: int = 0, log: Callable[[str], None] = lambda s: None
+                        ) -> AUFaceDetector:
     """Read a JAX ``train_au_face`` bundle ``{model[, embed, arcface, state]}``
-    or a bare model tree: ``model`` merges strictly onto a fresh tree, and
-    where that fails non-strictly (missing weights keep the port's seeded
-    init); ``state`` leniently. Other trees are ignored."""
+    or a bare model tree: ``model`` merges onto a fresh tree drawn from
+    ``seed``, strictly unless ``strict=False``, and where that fails
+    non-strictly (missing weights keep the port's seeded init), each step
+    told to ``log`` in ``cli/test_au_face.py``'s ``[Load]`` lines; ``state``
+    leniently. Other trees are ignored."""
     params, state = au_face_to_jax(AUFaceDetector(lstm_hidden,
-                                                  generator=torch.Generator().manual_seed(0)))
+                                                  generator=torch.Generator().manual_seed(seed)))
     bundle = load_bundle(path)
     tree = bundle.get("model", bundle)
     try:
-        params = merge_params(params, tree, strict=True)
-    except (KeyError, ValueError):
+        params = merge_params(params, tree, strict=strict)
+        log(f"[Load] {path} ok (strict={strict})")
+    except (KeyError, ValueError) as e:
+        log(f"[Load] strict failed -> {type(e).__name__}: {e}")
         params = merge_params(params, tree, strict=False)
+        log("[Load] non-strict fallback applied")
     if "state" in bundle:
         state = merge_params(state, bundle["state"], strict=False)
     return au_face_from_jax(params, state)

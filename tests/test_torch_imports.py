@@ -102,6 +102,15 @@ import multimodal_deepfake_detection_tpu_torch.serving.batcher
 import multimodal_deepfake_detection_tpu_torch.serving.daemon
 import multimodal_deepfake_detection_tpu_torch.cli.export_serving
 import multimodal_deepfake_detection_tpu_torch.cli.serve_daemon
+import multimodal_deepfake_detection_tpu_torch.cli.test_visual
+import multimodal_deepfake_detection_tpu_torch.cli.test_audio
+import multimodal_deepfake_detection_tpu_torch.cli.test_av_fused
+import multimodal_deepfake_detection_tpu_torch.cli.test_au_patch
+import multimodal_deepfake_detection_tpu_torch.cli.test_au_face
+import multimodal_deepfake_detection_tpu_torch.utils.saliency
+import multimodal_deepfake_detection_tpu_torch.utils.visualize
+import multimodal_deepfake_detection_tpu_torch.utils.metric_logger
+import multimodal_deepfake_detection_tpu_torch.utils.profiling
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
@@ -120,17 +129,31 @@ synthetic.make_au_patch_tree(root + "/patches", n_per_class=1, frames=2, n_aus=2
 synthetic.make_joint_tree(root + "/jv", root + "/ja", n_per_class=1, frames=2, n_aus=2,
                           face_size=16, patch_size=16)
 synthetic.make_audio_npy_tree(root + "/mfcc", n_per_class=1, frames=3)
-common = ["--epochs", "1", "--device", "cpu"]
+common = ["--epochs", "1", "--device", "cpu", "--jsonl_log"]
 train_au_patch.main(["--data_root", root + "/patches", "--checkpoint_dir", root + "/cp",
                      "--hidden_dim", "8", "--lstm_hidden", "4", "--image_size", "16",
-                     "--max_frames", "2", "--max_aus", "2"] + common, log=lambda s: None)
+                     "--max_frames", "2", "--max_aus", "2"] + common + [root + "/p.jsonl"],
+                    log=lambda s: None)
 train_au_face.main(["--video_root", root + "/jv", "--au_root", root + "/ja", "--checkpoint_dir",
                     root + "/cf", "--lstm_hidden", "4", "--face_dim", "8", "--au_dim", "8",
                     "--embed_dim", "8", "--num_aus", "2", "--image_size", "16", "--max_frames",
-                    "2"] + common, log=lambda s: None)
+                    "2"] + common + [root + "/f.jsonl"], log=lambda s: None)
 train_audio.main(["--train_folder", root + "/mfcc/train", "--eval_folder", root + "/mfcc/eval",
                   "--checkpoint_dir", root + "/ca", "--hidden_dim", "4", "--batch_size", "2",
-                  "--buckets", "3", "--eval_every", "1"] + common, log=lambda s: None)
+                  "--buckets", "3", "--eval_every", "1"] + common + [root + "/a.jsonl"],
+                  log=lambda s: None)
+import json
+for name in ("p", "f", "a"):  # the trainers' metric loggers
+    assert [json.loads(x)["event"] for x in open(root + "/" + name + ".jsonl")] == [
+        "run_start", "epoch"]
+from multimodal_deepfake_detection_tpu_torch.cli import test_au_patch
+report = []  # an evaluation CLI, to its report, on the bundle of the port's own
+results = test_au_patch.main(["--data_root", root + "/patches", "--ckpt_path",
+                              root + "/au_patch.npz", "--hidden_dim", "8", "--lstm_hidden", "4",
+                              "--image_size", "16", "--max_frames", "2", "--max_aus", "2",
+                              "--device", "cpu"], log=report.append)
+assert report[0].startswith("AUC: ") and report[1].startswith("[thr=0.5] Acc=")
+assert sorted(results)[:3] == ["AUC", "EER", "pAUC"]
 """ + _NO_JAX_LOADED
 
 # one tiny export under the blocker, in a process of its own: beside the
@@ -161,9 +184,10 @@ def _run_blocked(script: str, tmp_path) -> None:
 
 def test_port_imports_without_jax(tmp_path):
     """Every module of the port imports, the AU engines of its CLI build
-    from bundles, and ``train_visual``, ``train_au_patch``,
-    ``train_au_face`` and ``train_audio`` each train an epoch, with JAX
-    blocked."""
+    from bundles, ``train_visual``, ``train_au_patch``, ``train_au_face``
+    and ``train_audio`` each train an epoch (the last three with
+    ``--jsonl_log``), and ``test_au_patch`` evaluates the AU-patch bundle to
+    its report, with JAX blocked."""
     g = torch.Generator().manual_seed(0)
     save_bundle(str(tmp_path / "au_face.npz"),
                 dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))

@@ -233,8 +233,6 @@ def test_train_au_patch_cli_loss_history_matches_jax(patch_root, tmp_path, monke
 
 @pytest.mark.parametrize("argv,item", [
     (["--ckpt_backend", "orbax"], "item 11"),
-    (["--jsonl_log", "x.jsonl"], "item 12"),
-    (["--tracker", "tensorboard:x"], "item 12"),
 ])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

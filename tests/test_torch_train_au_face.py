@@ -249,8 +249,6 @@ def test_train_au_face_cli_bundle_serves_in_both_packages(joint_roots, tmp_path,
 
 @pytest.mark.parametrize("argv,item", [
     (["--ckpt_backend", "orbax"], "item 11"),
-    (["--jsonl_log", "x.jsonl"], "item 12"),
-    (["--tracker", "wandb:x"], "item 12"),
 ])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

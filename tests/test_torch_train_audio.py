@@ -178,8 +178,6 @@ def test_train_audio_cli_bundle_serves_in_both_packages(audio_root, tmp_path, ex
 @pytest.mark.parametrize("argv,err,match", [
     (["--native_loader", "true"], NotImplementedError, "item 13b"),
     (["--ckpt_backend", "orbax"], NotImplementedError, "item 11"),
-    (["--jsonl_log", "x.jsonl"], NotImplementedError, "item 12"),
-    (["--tracker", "tensorboard:x"], NotImplementedError, "item 12"),
     (["--cache_features", "true", "--freeze_backbone", "false"], ValueError, "freeze_backbone"),
 ])
 def test_unported_flags_raise(argv, err, match):

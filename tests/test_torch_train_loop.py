@@ -267,8 +267,8 @@ def test_train_visual_cli_bundle_serves_in_both_packages(tree, tmp_path, extra, 
 
 @pytest.mark.parametrize("argv,err", [
     (["--mode", "fakeavceleb"], NotImplementedError),
-    (["--tracker", "tensorboard:x"], NotImplementedError),
-    (["--jsonl_log", "x.jsonl"], NotImplementedError),
+    (["--lavdf_json", "x.json"], NotImplementedError),
+    (["--use_face_detection", "true"], NotImplementedError),
     (["--ckpt_backend", "orbax"], NotImplementedError),
     (["--num_workers", "2"], NotImplementedError),
     (["--frame_size", "64,64"], NotImplementedError),
