@@ -139,7 +139,36 @@ raises and exits non-zero:
    ``input_saliency`` (peak memory of one default batch; the card's bf16
    and fp32 maps at the cut against the CPU's, each with a control, the
    next clip's maps); the CLIs' ``--saliency_dir`` and ``--tsne`` only
-   where matplotlib and scikit-learn are installed.
+   where matplotlib and scikit-learn are installed. Beside the fp32 saliency
+   reading, the diagnostics of ROADMAP Queue 3 F5: 1 - p on both sides, the
+   maps of the score before its sigmoid, cuDNN deterministic and cuDNN off
+   in the backward, both sides against the CPU's fp64 maps, and for the AU
+   CLIs the ReLU gates and stem max-pool argmaxes the two forwards set
+   differently, with the maps of the images where all agree held at 1e-4;
+12. ingestion (``data/native_video.py``, ``native_loader.py`` and
+   ``native_build.py`` over ``native/*.cc``, ``video_enhanced.py``,
+   ``preprocess.py``, ``cli/preprocess_*.py``, ``cli/import_torch.py``), no
+   TPU kernel on the host code: g++, the libjpeg and libav headers, cv2,
+   ffmpeg and each native library's build and ``ldd``; 8 seeded mp4 clips
+   of 20-75 frames at 640x360 and an MJPEG avi (H.264 and MJPEG by the libav
+   engine where it built, else MPEG-4 part 2 and MJPEG by cv2), each decode
+   engine's frames/s to 256^2, then the clips through ``cli/serve.py
+   --engine visual --frame_size 256 --max_frames 75`` on phase 4's bundle
+   (K1 counted, 8 per backbone call; the clips each engine served asserted:
+   none on cv2 where a native engine handles the file) against the same
+   decoded frames as ``.npy`` (<= 1e-6), and the scoring loop's clips/s on
+   both; ``train_visual --mode lavdf_raw`` for 2 epochs over a LAV-DF
+   metadata.json of the clips at 224^2 (``--num_workers 2``), its bundle
+   served (K1 counted), ``test_visual --mode lavdf_raw`` on the test split;
+   the C++ collate's batches bit-equal to the Python loader's on phase 9's
+   audio tree, batches/s of both, ``train_audio --native_loader true``
+   against ``false`` (fp32 epoch losses within 1e-5); ``preprocess_audio``
+   on the card against the CPU (MFCC bar), ``preprocess_faces`` where cv2
+   imports; ``import_torch`` on phase 4's bundle written as a reference
+   ``.pth``: the bundle equal to the original array for array, served to
+   the original's scores (K1 counted), its fp32 scores card against CPU
+   within 1e-4. What the host lacks is named, and what it stops is skipped
+   with a line, not failed.
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
@@ -3209,9 +3238,13 @@ EVAL_CPU_CUT = {
 }
 EVAL_CPU_TOL = 1e-4  # card fp32 (IEEE) against CPU fp32 scores
 # saliency: ||card - CPU fp32|| / ||CPU fp32|| over the cut's first batch,
-# (fp32 bar, bf16 bar); each control (the CPU maps of the batch's next clip)
-# must fail its bar
-EVAL_SAL_BARS = (1e-2, 0.25)
+# per CLI (fp32 bar, bf16 bar); each control (the CPU maps of the batch's
+# next clip) must fail its bar
+EVAL_SAL_BARS = {"test_visual": (5e-5, 0.1), "test_au_patch": (3e-3, 0.25),
+                 "test_au_face": (1e-2, 0.25)}
+# the AU CLIs' fp32 maps over the images where every ReLU gate and stem
+# max-pool argmax of the card's forward agrees with the CPU's
+EVAL_SAL_AGREED = 1e-4
 
 
 def write_eval_trees(workdir: str) -> dict:
@@ -3311,15 +3344,164 @@ def saliency_inputs(name: str, scorer, batch):
     return to_device((videos, patches, au_mask, au_weight), scorer.device)
 
 
-def saliency_maps(torch, name: str, scorer, batch):
+def saliency_maps(torch, name: str, scorer, batch, fn=None):
     """``input_saliency`` of the CLI's scorer on one batch, as the CLI's
-    ``--saliency_dir`` computes it -> fp64 host maps."""
+    ``--saliency_dir`` computes it -> fp64 host maps (``fn``: another score
+    function of the same inputs)."""
     from multimodal_deepfake_detection_tpu_torch.cli.common import precision
     from multimodal_deepfake_detection_tpu_torch.utils.saliency import input_saliency
 
     with precision(scorer.cdtype):
-        maps = input_saliency(scorer.probs, *saliency_inputs(name, scorer, batch))
+        maps = input_saliency(fn or scorer.probs, *saliency_inputs(name, scorer, batch))
     return maps.double().cpu().numpy()
+
+
+def logit_fn(name: str, scorer):
+    """The CLI's score before its last step, the sigmoid (AU) or the
+    two-class softmax (visual: the logit difference): the saliency's function
+    without the factor p (1 - p) that saturates."""
+    if name == "test_au_patch":
+        return lambda p, w, n: scorer._apply(p, w, n)[:, 0].float()
+    if name == "test_au_face":
+        from multimodal_deepfake_detection_tpu_torch.models.au_face import au_face_detector_apply
+
+        return lambda v, p, m, w: au_face_detector_apply(
+            scorer.model, v, p, m, w, compute_dtype=scorer.cdtype)[0][:, 0].float()
+    from multimodal_deepfake_detection_tpu_torch.models.heads import (
+        arcface_apply,
+        xception_lstm_embed,
+        xception_lstm_features,
+    )
+
+    def fn(video, lengths):
+        feats, _ = xception_lstm_features(scorer.model, video, mode="video",
+                                          compute_dtype=scorer.cdtype)
+        emb = xception_lstm_embed(scorer.model, feats, lengths=lengths,
+                                  mask_padding=scorer.config.mask_padding,
+                                  compute_dtype=scorer.cdtype)
+        logits = arcface_apply(scorer.arcface.w, emb, None, s=scorer.config.arcface_s).float()
+        return logits[:, 1] - logits[:, 0]
+    return fn
+
+
+def gate_masks(torch, name: str, scorer, batch) -> list:
+    """One forward of the AU CLI's scorer with every ``torch.relu`` gate
+    and ResNet-18's stem max-pool argmax read: ``[(kind, gate or argmax,
+    on CPU)]`` in call order (pool argmaxes only where the window's maximum
+    is positive)."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import precision
+    from multimodal_deepfake_detection_tpu_torch.models import resnet
+
+    calls = []
+    relu, pool = torch.relu, resnet.max_pool2d
+
+    def gated(x):
+        calls.append(("relu", (x > 0).cpu()))
+        return relu(x)
+
+    def pooled(x, kernel_size=3, stride=2, padding=1):
+        mx, idx = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride,
+                                                 padding, return_indices=True)
+        calls.append(("pool", torch.where(mx > 0, idx, -1).cpu()))
+        return pool(x, kernel_size, stride, padding)
+
+    torch.relu, resnet.max_pool2d = gated, pooled
+    try:
+        with torch.no_grad(), precision(scorer.cdtype):
+            scorer.probs(*saliency_inputs(name, scorer, batch))
+    finally:
+        torch.relu, resnet.max_pool2d = relu, pool
+    return calls
+
+
+def fp64_maps(torch, name: str, cpu, batch):
+    """The saliency maps of the CPU scorer's model in fp64 (a copy)."""
+    import copy
+
+    from multimodal_deepfake_detection_tpu_torch.utils.saliency import input_saliency
+
+    scorer = copy.deepcopy(cpu)
+    scorer.model.double()
+    if hasattr(scorer, "arcface"):
+        scorer.arcface.double()
+    scorer.cdtype = torch.float64
+    inputs = [t.double() if t.is_floating_point() else t
+              for t in saliency_inputs(name, scorer, batch)]
+    return input_saliency(scorer.probs, *inputs).double().numpy()
+
+
+def saliency_diagnostics(torch, name: str, card, cpu, batch, got, ref, err: float) -> None:
+    """Why the card's fp32 saliency is off the CPU's (ROADMAP Queue 3, F5):
+    1 - p on both sides (the maps scale with p (1 - p)); the maps of the
+    score before its sigmoid / softmax, card against CPU; the card's maps
+    again with cuDNN deterministic, and with cuDNN off for the backward only;
+    both sides against the CPU's fp64 maps; for the AU CLIs the ReLU gates
+    and stem max-pool argmaxes that the card's and the CPU's forwards set
+    differently, and the maps of the images where they all agree, held at
+    ``EVAL_SAL_AGREED``."""
+    from multimodal_deepfake_detection_tpu_torch.cli.common import precision
+
+    with torch.no_grad(), precision(card.cdtype):
+        p_card = card.probs(*saliency_inputs(name, card, batch)).double().cpu().numpy()
+    with torch.no_grad(), precision(cpu.cdtype):
+        p_cpu = cpu.probs(*saliency_inputs(name, cpu, batch)).double().cpu().numpy()
+    q_card, q_cpu = np.minimum(p_card, 1 - p_card), np.minimum(p_cpu, 1 - p_cpu)
+    say(f"F5 {name}: min(p, 1 - p) card {np.array2string(q_card, precision=3)}, CPU "
+        f"{np.array2string(q_cpu, precision=3)}; max|dp| {np.abs(p_card - p_cpu).max():.3e}, "
+        f"max relative d(p (1 - p)) "
+        f"{np.abs(p_card * (1 - p_card) / (p_cpu * (1 - p_cpu)) - 1).max():.3e}")
+    lg_card = saliency_maps(torch, name, card, batch, logit_fn(name, card))
+    lg_cpu = saliency_maps(torch, name, cpu, batch, logit_fn(name, cpu))
+    say(f"F5 {name}: maps of the score before its sigmoid/softmax, card fp32 against CPU "
+        f"fp32: relative L2 {rel_l2(lg_card, lg_cpu):.3e} (the probability's: {err:.3e})")
+    b = torch.backends.cudnn
+    before = b.deterministic
+    b.deterministic = True
+    try:
+        det = saliency_maps(torch, name, card, batch)
+    finally:
+        b.deterministic = before
+    inputs = saliency_inputs(name, card, batch)
+    x = inputs[0].detach().clone().requires_grad_(True)
+    with precision(card.cdtype):
+        with torch.enable_grad():
+            total = card.probs(x, *inputs[1:]).sum()
+        with b.flags(enabled=False):
+            (g,) = torch.autograd.grad(total, x)
+    no_cudnn = g.float().abs().amax(dim=-1).double().cpu().numpy()
+    say(f"F5 {name}: card fp32 maps against CPU fp32, relative L2: cudnn.deterministic "
+        f"{rel_l2(det, ref):.3e}, cuDNN off in the backward {rel_l2(no_cudnn, ref):.3e}")
+    m64 = fp64_maps(torch, name, cpu, batch)
+    say(f"F5 {name}: against the CPU's fp64 maps, relative L2: card fp32 {rel_l2(got, m64):.3e}, "
+        f"CPU fp32 {rel_l2(ref, m64):.3e}")
+    if name == "test_visual":
+        return
+    # ResNet-18 runs per image: a ReLU gate or a stem max-pool argmax that
+    # the two fp32 forwards set differently moves the input gradient of that
+    # image alone
+    images = int(np.prod(ref.shape[:-2]))  # the maps' images: faces or patches
+    flipped = set()
+    for (kind, a), (_, b) in zip(gate_masks(torch, name, card, batch),
+                                 gate_masks(torch, name, cpu, batch)):
+        diff = a != b
+        if not diff.any():
+            continue
+        stream = "" if a.shape[0] == images else " (another stream)"
+        if not stream:
+            hit = torch.nonzero(diff.flatten(1).any(1)).flatten().tolist()
+            flipped.update(hit)
+            stream = f", in images {hit}"
+        say(f"F5 {name}: {kind} {tuple(a.shape)}: {int(diff.sum())} of {a.numel()} set "
+            f"differently on the card and the CPU{stream}")
+    keep = np.array([i not in flipped for i in range(images)])
+    flat = lambda m: m.reshape(images, -1)  # noqa: E731
+    rest = rel_l2(flat(got)[keep], flat(ref)[keep])
+    only = rel_l2(flat(got)[~keep], flat(ref)[~keep]) if flipped else 0.0
+    say(f"F5 {name}: card fp32 maps against CPU fp32 over the {int(keep.sum())} images where "
+        f"every gate agrees: relative L2 {rest:.3e} (<= {EVAL_SAL_AGREED:g}); over the "
+        f"{len(flipped)} others: {only:.3e}")
+    if not rest <= EVAL_SAL_AGREED:
+        raise AssertionError(f"{name}: maps off the CPU's by {rest} where every gate agrees")
 
 
 def device_forward(torch, name: str, scorer, batch):
@@ -3434,7 +3616,13 @@ def eval_cli(torch, name: str, mod, argv: list, smi: str, extras: dict) -> None:
         say("test_au_face sign flip: bf16 " + str(mod.sign_flip(yb, sb["score"], log=say))
             + ", fp32 " + str(mod.sign_flip(yf, sf["score"], log=say)))
 
-    # the card's fp32 against the CPU's, at the cut
+    card_against_cpu(torch, name, mod, argv)
+
+
+def card_against_cpu(torch, name: str, mod, argv: list) -> None:
+    """The card's fp32 scores against the CPU's at the cut; the saliency maps
+    (card fp32 and bf16 against CPU fp32, each with its control), with the
+    F5 diagnostics beside the fp32 reading."""
     cut = argv + EVAL_CPU_CUT[name] + ["--compute_dtype", "float32"]
     setups = {dev: eval_setup(name, mod, cut + ["--device", dev]) for dev in ("cuda", "cpu")}
     t0 = time.perf_counter()
@@ -3454,7 +3642,7 @@ def eval_cli(torch, name: str, mod, argv: list, smi: str, extras: dict) -> None:
         _, cpu_scorer, cpu_loader, _ = setups["cpu"]
         batch = next(iter(cpu_loader))
         ref = saliency_maps(torch, name, cpu_scorer, batch)
-        for dtype, bar in zip(("float32", "bfloat16"), EVAL_SAL_BARS):
+        for dtype, bar in zip(("float32", "bfloat16"), EVAL_SAL_BARS[name]):
             _, scorer, _, _ = (setups["cuda"] if dtype == "float32" else
                                eval_setup(name, mod, argv + EVAL_CPU_CUT[name]))
             got = saliency_maps(torch, name, scorer, batch)
@@ -3462,6 +3650,8 @@ def eval_cli(torch, name: str, mod, argv: list, smi: str, extras: dict) -> None:
             say(f"{name} saliency, card {dtype} against CPU fp32 (shape {ref.shape}): relative "
                 f"L2 {err:.3e} (<= {bar:g}); control (the CPU maps of the batch's next clip) "
                 f"{ctl:.3e}")
+            if dtype == "float32":
+                saliency_diagnostics(torch, name, scorer, cpu_scorer, batch, got, ref, err)
             if not err <= bar:
                 raise AssertionError(f"{name}: card {dtype} saliency off the CPU's by {err}")
             if ctl <= bar:
@@ -3522,6 +3712,497 @@ def phase_eval(torch, workdir: str, smi: str) -> None:
     say(f"phase 11 (evaluation) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: ingestion (data/native_video.py and native_loader.py over
+# native/*.cc, data/video_enhanced.py, data/preprocess.py, cli/import_torch.py).
+# No TPU kernel lies on the host code: the JAX package decodes, collates and
+# imports on the host too. The video files are scored through K1.
+# ---------------------------------------------------------------------------
+
+INGEST_T = (20, 75, 33, 50, 61, 27, 44, 70)  # frames of the 8 seeded clips
+INGEST_HW = (360, 640)  # the clips' height and width: the CLI resizes them
+INGEST_SIZE = 256  # --frame_size of the serve CLI
+INGEST_NPY_TOL = 1e-6  # decoded videos against the same frames as .npy
+INGEST_TRAIN_SIZE, INGEST_TRAIN_T = 224, 50
+# the LAV-DF splits of the 8 clips (train 4, dev 2, test 2) and their fake periods
+INGEST_SPLITS = ("train", "train", "train", "train", "dev", "dev", "test", "test")
+INGEST_WAV_S = (1.8, 2.4)  # seconds of the two seeded .wav files a class
+COLLATE_EPOCHS = 20  # passes over phase 9's audio tree, native against Python
+
+
+def host_report(built: dict) -> dict:
+    """What the host offers the ingestion path, on lines of its own: g++,
+    the libjpeg and libav headers, cv2, ffmpeg, each native library's build
+    and ``ldd``. Returns ``{"cv2": module or None, ...}``."""
+    import importlib
+    import shutil
+
+    from multimodal_deepfake_detection_tpu_torch.data import native_build
+
+    gxx = shutil.which("g++")
+    version = (subprocess.run([gxx, "--version"], capture_output=True, text=True)
+               .stdout.splitlines()[0] if gxx else "absent")
+    say(f"ingest host: g++ {version}")
+    for header in ("jpeglib.h", "libavcodec/avcodec.h"):
+        found = [d for d in ("/usr/include", "/usr/include/x86_64-linux-gnu",
+                             "/usr/local/include") if os.path.exists(os.path.join(d, header))]
+        say(f"ingest host: {header} {'in ' + ', '.join(found) if found else 'absent'}")
+    try:
+        cv2 = importlib.import_module("cv2")
+        say(f"ingest host: cv2 {cv2.__version__} imports")
+    except ImportError as e:
+        cv2 = None
+        say(f"ingest host: cv2 absent ({e})")
+    say(f"ingest host: ffmpeg binary {shutil.which('ffmpeg') or 'absent'}")
+    for name, err in built.items():
+        if err is None:
+            lib = native_build.library_path(name)
+            ldd = subprocess.run(["ldd", str(lib)], capture_output=True, text=True).stdout
+            say(f"ingest build: native/{name}.cc -> build/{lib.name}; ldd: "
+                + "; ".join(line.strip() for line in ldd.splitlines()))
+        else:
+            say(f"ingest build: native/{name}.cc did not build: "
+                + " | ".join(err.splitlines()[:3]))
+    return {"cv2": cv2}
+
+
+def ingest_frames(rng, t: int):
+    """``t`` frames of 640x360 uint8 RGB: a smooth random field drifting a
+    few pixels a frame, plus noise."""
+    H, W = INGEST_HW
+    base = rng.integers(0, 256, (H // 8 + 1, W // 8 + 1, 3)).astype(np.float32)
+    base = np.repeat(np.repeat(base, 8, axis=0), 8, axis=1)
+    frames = np.empty((t, H, W, 3), np.uint8)
+    for i in range(t):
+        shifted = np.roll(base, (2 * i, 3 * i), axis=(0, 1))[:H, :W]
+        frames[i] = np.clip(shifted + rng.normal(0, 6, (H, W, 3)), 0, 255).astype(np.uint8)
+    return frames
+
+
+def write_ingest_clips(vid_dir: str, cv2, libav: bool) -> str:
+    """The 8 seeded ``.mp4`` clips (``INGEST_T`` frames at 640x360), H.264
+    through the libav engine's encoder where it built, else MPEG-4 part 2
+    (``mp4v``) through cv2; and one MJPEG ``.avi`` of 16 frames, by libav
+    where it can write one, else by cv2, else none. Returns what wrote
+    them."""
+    from multimodal_deepfake_detection_tpu_torch.data.native_video import encode_test_video
+
+    os.makedirs(vid_dir)
+    rng = np.random.default_rng(160)
+
+    def with_cv2(path, frames, fourcc):
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 25, INGEST_HW[::-1])
+        if not w.isOpened():
+            raise AssertionError(f"cv2 could not write {path}")
+        for f in frames:
+            w.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        w.release()
+
+    for i, t in enumerate(INGEST_T):
+        path = os.path.join(vid_dir, f"clip{i}.mp4")
+        frames = ingest_frames(rng, t)
+        if libav:
+            if encode_test_video(path, frames) <= 0:
+                raise AssertionError(f"libav could not write {path} (libx264)")
+        else:
+            with_cv2(path, frames, "mp4v")
+    path, frames = os.path.join(vid_dir, f"clip{len(INGEST_T)}.avi"), ingest_frames(rng, 16)
+    if libav and encode_test_video(path, frames, codec="mjpeg") > 0:
+        avi = "libav"
+    elif cv2 is not None:
+        with_cv2(path, frames, "MJPG")
+        avi = "cv2"
+    else:
+        avi = None
+        if os.path.exists(path):
+            os.remove(path)
+    mp4 = "libav (H.264)" if libav else "cv2 (MPEG-4 part 2)"
+    return f"mp4: {mp4}; MJPEG avi: " + (avi or "none, neither libav nor cv2 writes one")
+
+
+def engine_counts() -> dict:
+    from multimodal_deepfake_detection_tpu_torch.data.native_video import ENGINE_COUNTS
+
+    return dict(ENGINE_COUNTS)
+
+
+def expected_engines(built: dict, n_mp4: int, n_avi: int) -> dict:
+    """Which engine serves each clip: the MJPEG engine the ``.avi`` where it
+    built, libav what is left where it built, cv2 the rest."""
+    mjpeg = n_avi if built["video_decode"] is None else 0
+    libav = (n_mp4 + n_avi - mjpeg) if built["video_decode_av"] is None else 0
+    return {"mjpeg": mjpeg, "libav": libav, "cv2": n_mp4 + n_avi - mjpeg - libav}
+
+
+def decode_rates(vid_dir: str, built: dict, cv2, smi: str) -> None:
+    """Frames/s of each engine that can run here, 640x360 -> 256^2, over the
+    clips it handles (host clock, one pass after a warm-up clip)."""
+    from multimodal_deepfake_detection_tpu_torch.data import native_video
+
+    size = (INGEST_SIZE, INGEST_SIZE)
+    paths = sorted(os.path.join(vid_dir, f) for f in os.listdir(vid_dir))
+
+    def cv2_decode(path):
+        cap, frames = cv2.VideoCapture(path), []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.resize(cv2.cvtColor(f, cv2.COLOR_BGR2RGB), size))
+        cap.release()
+        return np.stack(frames)
+
+    engines = {}
+    avis = [p for p in paths if p.endswith(".avi")]
+    if built["video_decode"] is None and avis:
+        engines["mjpeg"] = (lambda p: native_video.decode_video(p, size=size), avis)
+    if built["video_decode_av"] is None:
+        engines["libav"] = (lambda p: native_video.decode_video_av(p, size=size), paths)
+    if cv2 is not None:
+        engines["cv2"] = (cv2_decode, paths)
+    for name, (fn, ps) in engines.items():
+        fn(ps[0])
+        t0, frames = time.perf_counter(), 0
+        for p in ps:
+            frames += fn(p).shape[0]
+        dt = time.perf_counter() - t0
+        say(f"ingest decode {name}: {frames} frames of {INGEST_HW[1]}x{INGEST_HW[0]} -> "
+            f"{INGEST_SIZE}^2 in {dt * 1e3:.2f} ms, {frames / dt:.1f} frames/s (host clock; {smi})")
+    for name in ("mjpeg", "libav", "cv2"):
+        if name not in engines:
+            say(f"ingest decode {name}: not timed, the engine is absent on this host")
+
+
+def ingest_serve(torch, workdir: str, vid_dir: str, built: dict, smi: str) -> None:
+    """The video files through ``cli/serve.py --engine visual`` on phase 4's
+    bundle (K1 counted, engine counts asserted), against the same decoded
+    frames as ``.npy`` through the same CLI; the CLI's clips/s on both."""
+    from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
+    from multimodal_deepfake_detection_tpu_torch.data.native_video import reset_engine_counts
+
+    bundle = visual_inputs(torch, workdir)[0]
+    n_avi = sum(f.endswith(".avi") for f in os.listdir(vid_dir))
+    n = len(INGEST_T) + n_avi
+    calls = -(-n // BATCH_SIZE)
+    flags = ["--frame_size", str(INGEST_SIZE), "--max_frames", "75"]
+    reset_engine_counts()
+    scores = run_cli(torch, workdir, visual_argv(bundle, vid_dir), "ingest videos", flags,
+                     per_call(calls, k1=8), n_inputs=n)
+    counts, want = engine_counts(), expected_engines(built, len(INGEST_T), n_avi)
+    say(f"ingest videos: clips served per engine {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"decode engines served {counts}, expected {want}")
+    npy_dir = os.path.join(workdir, "ingest_npy")
+    os.makedirs(npy_dir)
+    cfg = cli_serve.parse_config(flags)
+    for f in sorted(os.listdir(vid_dir)):
+        np.save(os.path.join(npy_dir, os.path.splitext(f)[0] + ".npy"),
+                cli_serve._load_visual_item(os.path.join(vid_dir, f), cfg))
+    ref = run_cli(torch, workdir, visual_argv(bundle, npy_dir), "ingest npy of the frames",
+                  flags, per_call(calls, k1=8), n_inputs=n)
+    d = float(np.abs(scores - ref).max())
+    say(f"ingest videos against the same frames as .npy: scores max|d| {d:.3e} "
+        f"(<= {INGEST_NPY_TOL:.0e}); scores {np.round(scores, 4).tolist()}")
+    if not d <= INGEST_NPY_TOL:
+        raise AssertionError(f"decoded videos score off their .npy frames by {d}")
+    # the CLI's scoring loop alone (bundle loaded once), videos and .npy in turns
+    cfg = cli_serve.parse_config(visual_argv(bundle, vid_dir) + flags)
+    engine = cli_serve.build_engine(cfg)
+    lists = {k: cli_serve._list_inputs(d, (".npy",) + cli_serve.VIDEO_EXTS)
+             for k, d in (("videos", vid_dir), ("npy", npy_dir))}
+    runs = {k: [] for k in lists}
+    for _ in range(2):
+        for k, paths in lists.items():
+            t0 = time.perf_counter()
+            for i in range(0, n, BATCH_SIZE):
+                cli_serve._score_chunk(engine, cfg, paths[i:i + BATCH_SIZE])
+            runs[k].append(time.perf_counter() - t0)
+    say("ingest cli/serve.py scoring loop clips/s (load, decode, pad, score; bundle loaded "
+        "once), 2 runs each in turns: " + "; ".join(
+            f"{k} {[round(n / t, 2) for t in ts]}" for k, ts in runs.items())
+        + f" ({n} clips of up to 75 frames, {INGEST_SIZE}^2, bf16, batch {BATCH_SIZE}; {smi})")
+
+
+def ingest_train(torch, workdir: str, vid_dir: str, smi: str) -> None:
+    """``train_visual --mode lavdf_raw`` for 2 epochs over a LAV-DF
+    metadata.json of the clips; its bundle served on the videos (K1
+    counted); ``test_visual --mode lavdf_raw`` on the test split."""
+    from multimodal_deepfake_detection_tpu_torch.cli import test_visual, train_visual
+
+    meta = [{"file": f"clip{i}.mp4", "split": split,
+             "fake_periods": [[0.1, 0.5]] if i % 2 else [], "n_fakes": i % 2}
+            for i, split in enumerate(INGEST_SPLITS)]
+    meta_path = os.path.join(workdir, "lavdf_metadata.json")
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    ck = os.path.join(workdir, "ingest_train")
+    size = f"{INGEST_TRAIN_SIZE},{INGEST_TRAIN_SIZE}"
+    logs = []
+    t0 = time.perf_counter()
+    history = counted(torch, "train_visual --mode lavdf_raw", lambda: train_visual.main(
+        ["--mode", "lavdf_raw", "--train_folder", vid_dir, "--eval_folder", vid_dir,
+         "--lavdf_json", meta_path, "--checkpoint_dir", ck, "--epochs", "2", "--frame_size",
+         size, "--max_frames", str(INGEST_TRAIN_T), "--num_workers", "2", "--device", "cuda"],
+        log=logs.append), per_call(0))
+    secs = time.perf_counter() - t0
+    for line in logs:
+        say(f"train_visual lavdf_raw: {line}")
+    bundle = os.path.join(ck, train_visual.Config.bundle_name)
+    if len(history) != 2 or not os.path.exists(bundle):
+        raise AssertionError("train_visual --mode lavdf_raw: no best bundle after 2 epochs")
+    say(f"train_visual --mode lavdf_raw: 2 epochs in {secs:.1f} s (4 train, 2 dev clips of "
+        f"<= {INGEST_TRAIN_T} frames at {INGEST_TRAIN_SIZE}^2, decoded each epoch; {smi})")
+    n = len(os.listdir(vid_dir))
+    run_cli(torch, workdir, visual_argv(bundle, vid_dir), "serve the lavdf_raw bundle",
+            ["--frame_size", str(INGEST_TRAIN_SIZE), "--max_frames", "75"],
+            per_call(-(-n // BATCH_SIZE), k1=8), n_inputs=n)
+    report = []
+    results = counted(torch, "test_visual --mode lavdf_raw", lambda: test_visual.main(
+        ["--mode", "lavdf_raw", "--subset", "test", "--test_folder", vid_dir, "--lavdf_json",
+         meta_path, "--ckpt_path", bundle, "--frame_size", size, "--device", "cuda"],
+        log=report.append), per_call(0))
+    say("test_visual --mode lavdf_raw report: " + " | ".join(
+        line.strip() for line in report if line.strip()))
+    if not np.isfinite(results["Accuracy"]):
+        raise AssertionError("test_visual --mode lavdf_raw: no accuracy")
+
+
+def ingest_collate(torch, workdir: str, smi: str) -> None:
+    """The C++ npy collate on phase 9's audio tree: batches bit-equal to the
+    Python loader's, ``train_audio --native_loader true`` for 2 epochs with
+    its epoch losses within phase 9's loss bar of the ``false`` run (fp32),
+    and batches/s of both loaders."""
+    from multimodal_deepfake_detection_tpu_torch.cli import train_audio
+    from multimodal_deepfake_detection_tpu_torch.data import synthetic
+    from multimodal_deepfake_detection_tpu_torch.data.datasets import NpyFolderDataset
+    from multimodal_deepfake_detection_tpu_torch.data.loader import DataLoader
+    from multimodal_deepfake_detection_tpu_torch.data.native_loader import make_native_loader
+
+    tree = synthetic.make_audio_npy_tree(os.path.join(workdir, "ingest_audio"), n_per_class=4,
+                                         frames=120, seed=122)
+    cfg = train_audio.Config()
+    ds = NpyFolderDataset(tree + "/train", kind="audio")
+    loaders = {"python": lambda: DataLoader(ds, cfg.batch_size, seed=cfg.seed,
+                                            buckets=cfg.buckets),
+               "native": lambda: make_native_loader(ds, cfg.batch_size, buckets=cfg.buckets,
+                                                    seed=cfg.seed)}
+    py, nat = list(loaders["python"]()), list(loaders["native"]())
+    same = len(py) == len(nat) and all(
+        a.dtype == b.dtype and np.array_equal(a, b) for p, q in zip(py, nat) for a, b in zip(p, q))
+    say(f"ingest native collate: {len(nat)} batches of {tuple(nat[0][0].shape)} bit-equal to "
+        f"the Python loader's: {same}")
+    if not same:
+        raise AssertionError("the native collate's batches differ from the Python loader's")
+    rates = {}
+    for name, make in loaders.items():
+        loader = make()
+        t0, n = time.perf_counter(), 0
+        for _ in range(COLLATE_EPOCHS):
+            n += sum(1 for _ in loader)
+        rates[name] = n / (time.perf_counter() - t0)
+    say(f"ingest loaders on phase 9's audio tree ({len(ds)} clips of 120 MFCC steps, batch "
+        f"{cfg.batch_size}): native {rates['native']:.1f} batches/s, Python "
+        f"{rates['python']:.1f} batches/s (host clock; {smi})")
+    losses = {}
+    for native in ("false", "true"):
+        history = train_audio.main(
+            ["--train_folder", tree + "/train", "--eval_folder", tree + "/eval",
+             "--checkpoint_dir", os.path.join(workdir, f"ingest_audio_{native}"), "--epochs", "2",
+             "--eval_every", "1", "--compute_dtype", "float32", "--native_loader", native,
+             "--device", "cuda"], log=lambda s: None)
+        losses[native] = np.array([[r.train_loss, r.eval_loss] for r in history])
+    d = float(np.abs(losses["true"] - losses["false"]).max())
+    bar = TRAIN_CPU_BARS["loss"]
+    say(f"train_audio --native_loader true against false, 2 epochs fp32: epoch train/eval "
+        f"losses {np.round(losses['true'], 6).tolist()}, max|d| {d:.3e} (<= {bar:.0e})")
+    if not d <= bar:
+        raise AssertionError(f"train_audio --native_loader: losses off the Python loader's by {d}")
+
+
+def ingest_preprocess(torch, workdir: str, vid_dir: str, cv2) -> None:
+    """``preprocess_audio`` on seeded .wav files, the card's MFCC .npy files
+    against the CPU's (MFCC bar); ``preprocess_faces --mode fakeavceleb`` on
+    the clips where cv2 imports."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from multimodal_deepfake_detection_tpu_torch.cli import preprocess_audio, preprocess_faces
+
+    root = os.path.join(workdir, "ingest_wav")
+    rng = np.random.default_rng(161)
+    for label in ("real", "fake"):
+        os.makedirs(os.path.join(root, label))
+        for i, secs in enumerate(INGEST_WAV_S):
+            wav = (rng.normal(0, 0.1, int(secs * 16000)) * 32767).astype(np.int16)
+            wavfile.write(os.path.join(root, label, f"clip{i}.wav"), 16000, wav)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(workdir, f"ingest_mfcc_{dev}")
+        written = preprocess_audio.main(["--dataset_root", root, "--out_root", outs[dev],
+                                         "--device", dev], log=lambda s: None)
+    files = sorted(os.path.join(s, f) for s in ("train", "eval", "test")
+                   for f in os.listdir(os.path.join(outs["cpu"], s)))
+    d = max(float(np.abs(np.load(os.path.join(outs["cuda"], f)) -
+                         np.load(os.path.join(outs["cpu"], f))).max()) for f in files)
+    say(f"preprocess_audio: {len(written)} clips, {len(files)} .npy files, the card's MFCC "
+        f"against the CPU's max|d| {d:.3e} (<= {MFCC_TOL:.0e})")
+    if len(files) != 3 * len(written) or not d <= MFCC_TOL:
+        raise AssertionError(f"preprocess_audio on the card: {len(files)} files, max|d| {d}")
+    if cv2 is None:
+        say("preprocess_faces: not run, cv2 is absent on this host (it decodes the videos)")
+        return
+    src = os.path.join(workdir, "ingest_favc")
+    for i in range(4):
+        d_ = os.path.join(src, "real" if i % 2 == 0 else "fake", "id0")
+        os.makedirs(d_, exist_ok=True)
+        shutil.copy(os.path.join(vid_dir, f"clip{i}.mp4"), d_)
+    out = os.path.join(workdir, "ingest_frames")
+    written = preprocess_faces.main(["--dataset_root", src, "--out_root", out, "--mode",
+                                     "fakeavceleb"], log=lambda s: None)
+    shapes = sorted({np.load(os.path.join(out, s, f)).shape[1:] for s in os.listdir(out)
+                     for f in os.listdir(os.path.join(out, s))})
+    say(f"preprocess_faces --mode fakeavceleb: {len(written)} clips -> frame stacks of "
+        f"{shapes} uint8")
+    if len(written) != 4 or shapes != [(256, 256, 3)]:
+        raise AssertionError(f"preprocess_faces wrote {written}, {shapes}")
+
+
+def reference_state_dict(torch, trees: dict) -> dict:
+    """A JAX-layout ``{model, arcface, state}`` XceptionLSTMV bundle in the
+    reference's ``.pth`` layout, ``{"model": state_dict, "arcface":
+    {"weight"}}``: ``feature_extractor.`` Xception keys (conv OIHW, depthwise
+    ``(C, 1, 3, 3)``, ``blockN.rep.i`` with the ReLU slots of
+    ``start_with_relu``, ``skip``/``skipbn``, BN running statistics), the
+    LSTM's ``weight_ih_l0``, ``fc_layers.{0,3,6,9}``, ``fc_out``."""
+    from multimodal_deepfake_detection_tpu_torch.models.xception import XCEPTION_BLOCK_SPECS
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    params, state = trees["model"], trees["state"]["backbone"]
+    bb = params["backbone"]
+    sd = {}
+
+    def conv(key, w):
+        sd[key + ".weight"] = t(np.transpose(w, (3, 2, 0, 1)))
+
+    def bn(key, p, s):
+        sd.update({key + ".weight": t(p["scale"]), key + ".bias": t(p["bias"]),
+                   key + ".running_mean": t(s["mean"]), key + ".running_var": t(s["var"]),
+                   key + ".num_batches_tracked": torch.tensor(0)})
+
+    def sep(key, p):
+        conv(key + ".conv1", p["depthwise"]["w"])
+        conv(key + ".pointwise", p["pointwise"]["w"])
+
+    fe = "feature_extractor."
+    for name in ("conv1", "conv2"):
+        conv(fe + name, bb[name]["w"])
+    for name in ("bn1", "bn2", "bn3", "bn4"):
+        bn(fe + name, bb[name], state[name])
+    for b, (spec, bp, bs) in enumerate(zip(XCEPTION_BLOCK_SPECS, bb["blocks"], state["blocks"])):
+        idx = 0
+        for j, (up, us) in enumerate(zip(bp["units"], bs["units"])):
+            idx += 1 if (j > 0 or spec[4]) else 0  # the ReLU slot
+            sep(f"{fe}block{b + 1}.rep.{idx}", up["sep"])
+            bn(f"{fe}block{b + 1}.rep.{idx + 1}", up["bn"], us["bn"])
+            idx += 2
+        if "skip" in bp:
+            conv(f"{fe}block{b + 1}.skip", bp["skip"]["conv"]["w"])
+            bn(f"{fe}block{b + 1}.skipbn", bp["skip"]["bn"], bs["skip"]["bn"])
+    sep(fe + "conv3", bb["conv3"])
+    sep(fe + "conv4", bb["conv4"])
+    for k in ("w_ih", "w_hh"):
+        sd[f"lstm.weight_{k[2:]}_l0"] = t(params["lstm"][k].T)
+    for k in ("b_ih", "b_hh"):
+        sd[f"lstm.bias_{k[2:]}_l0"] = t(params["lstm"][k])
+    for slot, layer in zip((0, 3, 6, 9), params["fc_layers"]):
+        sd[f"fc_layers.{slot}.weight"], sd[f"fc_layers.{slot}.bias"] = t(layer["w"].T), t(layer["b"])
+    sd["fc_out.weight"], sd["fc_out.bias"] = t(params["fc_out"]["w"].T), t(params["fc_out"]["b"])
+    return {"model": sd, "arcface": {"weight": t(trees["arcface"]["w"])}}
+
+
+def ingest_import(torch, workdir: str, bundle: str, smi: str) -> None:
+    """``import_torch`` on phase 4's bundle written as a reference ``.pth``:
+    the imported bundle equal to the original array for array, served
+    through ``cli/serve.py --engine visual`` (K1 counted) to the original's
+    scores, and its fp32 scores on the card (the plain path: K1's GEMM takes
+    bf16 operands) within 1e-4 of the CPU's."""
+    from multimodal_deepfake_detection_tpu_torch.cli import import_torch
+    from multimodal_deepfake_detection_tpu_torch.core.checkpoint import (
+        _flatten_with_paths,
+        load_bundle,
+    )
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    trees = load_bundle(bundle)
+    pth, out = os.path.join(workdir, "reference.pth"), os.path.join(workdir, "imported.npz")
+    torch.save(reference_state_dict(torch, trees), pth)
+    import_torch.main(["--src", pth, "--dst", out], log=say)
+    a, b = _flatten_with_paths(trees), _flatten_with_paths(load_bundle(out))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    say(f"import_torch: {len(b)} arrays, equal to the original bundle's: {same}")
+    if not same:
+        raise AssertionError("import_torch's bundle differs from the original")
+    clip_dir = visual_inputs(torch, workdir)[1]
+    calls = -(-len(CLIP_LENGTHS) // BATCH_SIZE)
+    got = run_cli(torch, workdir, visual_argv(out, clip_dir), "serve the imported bundle", [],
+                  per_call(calls, k1=8))
+    ref = run_cli(torch, workdir, visual_argv(bundle, clip_dir), "serve the original bundle",
+                  [], per_call(calls, k1=8))
+    d = float(np.abs(got - ref).max())
+    say(f"import_torch: the imported bundle served against the original, max|d| {d:.3e}")
+    if d != 0:
+        raise AssertionError(f"the imported bundle scores off the original by {d}")
+    frames = np.stack([c[:2] for c in visual_inputs(torch, workdir)[2][:2]])
+    kw = dict(compute_dtype=torch.float32, use_kernels=False)
+    card = VisualScorer.from_bundle(out, device="cuda", **kw).score(frames)
+    cpu = VisualScorer.from_bundle(out, device="cpu", **kw).score(frames)
+    d = float(np.abs(card - cpu).max())
+    say(f"import_torch: the imported bundle's fp32 scores, card against CPU (2 clips x 2 "
+        f"frames of 256^2): max|d| {d:.3e} (<= {EVAL_CPU_TOL:.0e}; {smi})")
+    if not d <= EVAL_CPU_TOL:
+        raise AssertionError(f"imported bundle: card fp32 off the CPU's by {d}")
+
+
+def phase_ingest(torch, workdir: str, smi: str) -> None:
+    """Phase 12: video and data ingestion."""
+    from multimodal_deepfake_detection_tpu_torch.data import native_build
+
+    t_phase = time.perf_counter()
+    built = native_build.build()
+    host = host_report(built)
+    cv2, libav = host["cv2"], built["video_decode_av"] is None
+    vid_dir = os.path.join(workdir, "ingest_videos")
+    steps = []
+    if cv2 is None and not libav:
+        say("ingest: no decode engine built and cv2 is absent: the video serve path, "
+            "train_visual --mode lavdf_raw and preprocess_faces cannot run on this host")
+    else:
+        say(f"ingest clips written by {write_ingest_clips(vid_dir, cv2, libav)}")
+        if not libav:
+            say("ingest: the libav engine did not build, so the clips are not H.264 and no "
+                "clip is decoded natively as mp4")
+        if built["video_decode"] is not None:
+            say("ingest: the MJPEG engine did not build: the .avi goes to "
+                + ("libav" if libav else "cv2"))
+        steps += [("decode rates", lambda: decode_rates(vid_dir, built, cv2, smi)),
+                  ("serve videos", lambda: ingest_serve(torch, workdir, vid_dir, built, smi)),
+                  ("lavdf_raw train and test", lambda: ingest_train(torch, workdir, vid_dir,
+                                                                     smi))]
+    if built["npy_collate"] is None:
+        steps.append(("native collate", lambda: ingest_collate(torch, workdir, smi)))
+    else:
+        say("ingest: the native npy collate did not build: train_audio --native_loader "
+            "cannot run on this host")
+    steps += [("preprocess", lambda: ingest_preprocess(torch, workdir, vid_dir, cv2)),
+              ("import_torch", lambda: ingest_import(
+                  torch, workdir, visual_inputs(torch, workdir)[0], smi))]
+    for label, step in steps:
+        t0 = time.perf_counter()
+        step()
+        say(f"ingest {label} took {time.perf_counter() - t0:.1f} s")
+    say(f"phase 12 (ingestion) took {time.perf_counter() - t_phase:.1f} s")
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3546,6 +4227,7 @@ def main() -> int:
         phase_au_train(torch, workdir, smi)
         artifact_launches = phase_artifacts(torch, workdir, smi)
         phase_eval(torch, workdir, smi)
+        phase_ingest(torch, workdir, smi)
     say(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,

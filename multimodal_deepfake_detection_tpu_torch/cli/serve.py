@@ -17,7 +17,12 @@ clip.
     python -m multimodal_deepfake_detection_tpu_torch.cli.serve \
         --engine au_face --ckpt_path au_face.npz --input faces/ --au_input patches/
 
-Inputs: ``visual`` and ``av`` read ``.npy`` uint8 frame stacks ``(T, H, W, 3)``;
+Inputs: ``visual`` and ``av`` read ``.npy`` uint8 frame stacks ``(T, H, W, 3)``
+and video files (``.mp4 .avi .mov .mkv .webm``), decoded by the native
+engines (``data/native_video.py``: MJPEG-AVI over libjpeg, anything else over
+libav) or, per file they do not handle, by cv2, at most ``--max_frames``
+frames, resized to ``--frame_size`` square (0 keeps the stream's size); the
+CLI logs how many clips each engine (``mjpeg``, ``libav``, ``cv2``) served;
 ``audio`` reads ``.npy`` float waveforms and ``.wav`` files (through
 ``scipy.io.wavfile``); ``av`` pairs each clip with the waveform of the same
 stem under ``--audio_input``, ``.wav`` before ``.npy``. A batch of waveforms
@@ -50,9 +55,8 @@ files) scores through exported programs (``cli/export_serving.py``,
 ``models/artifact.py``) instead of a checkpoint, one artifact per serving
 bucket, on the device type they were exported on: weights, quantization,
 routes and preprocessing are baked, so ``--quantize`` and the route flags
-raise with it and the model-width flags are unused. Video decoding (ROADMAP
-item 10b) and ``--use_mesh`` (item 11) are not ported yet; the latter
-raises.
+raise with it and the model-width flags are unused. ``--use_mesh`` (ROADMAP
+item 11) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -64,6 +68,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.config import parse_config as _parse_config
+
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 @dataclasses.dataclass
@@ -78,6 +84,7 @@ class Config:
     output: Optional[str] = None  # JSONL path; default stdout
     batch_size: int = 8
     max_frames: int = 50
+    frame_size: int = 0  # resize decoded video frames to this square; 0 = native
     hidden_dim: int = 128  # the visual head's width (audio's is audio_hidden)
     audio_hidden: int = 512
     num_aus: int = 17
@@ -125,11 +132,38 @@ def _list_inputs(folder: str, exts: Tuple[str, ...]) -> List[str]:
 
 
 def _load_visual_item(path: str, cfg: Config) -> np.ndarray:
-    """-> (T, H, W, 3) uint8; float stacks in [0, 1] are scaled to 0..255."""
-    arr = np.load(path)[: cfg.max_frames]
-    if arr.dtype != np.uint8:
-        arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8) if arr.max() <= 1.5 else arr.astype(np.uint8)
-    return arr
+    """-> (T, H, W, 3) uint8; float stacks in [0, 1] are scaled to 0..255,
+    videos decoded by the native engines, else cv2."""
+    if path.endswith(".npy"):
+        arr = np.load(path)[: cfg.max_frames]
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8) if arr.max() <= 1.5 else arr.astype(np.uint8)
+        return arr
+    from ..data.native_video import count_engine, decode_video
+
+    size = (cfg.frame_size, cfg.frame_size) if cfg.frame_size else None
+    arr = decode_video(path, size=size, max_frames=cfg.max_frames)
+    if arr is not None:
+        return (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+    import cv2  # the per-file fallback
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        while len(frames) < cfg.max_frames:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            if cfg.frame_size:
+                frame = cv2.resize(frame, (cfg.frame_size, cfg.frame_size))
+            frames.append(frame)
+    finally:
+        cap.release()
+    if not frames:
+        raise ValueError(f"no frames decoded from {path}")
+    count_engine("cv2")
+    return np.stack(frames)
 
 
 def _load_waveform(path: str) -> np.ndarray:
@@ -298,10 +332,19 @@ def main(argv=None, *, log=print) -> int:
         raise ValueError("--audio_input (wav/npy root) required for av")
     if cfg.engine == "au_face" and not cfg.au_input:
         raise ValueError("--au_input (AU patch root) required for au_face")
-    paths = _list_inputs(cfg.input, (".npy", ".wav") if cfg.engine == "audio" else (".npy",))
+    if cfg.engine in ("visual", "av"):
+        exts = (".npy",) + VIDEO_EXTS
+    else:
+        exts = (".npy", ".wav") if cfg.engine == "audio" else (".npy",)
+    paths = _list_inputs(cfg.input, exts)
     if not paths:
         raise FileNotFoundError(f"no scoreable inputs under {cfg.input}")
     log(f"[serve] {cfg.engine}: {len(paths)} inputs, batch {cfg.batch_size}, {cfg.device}")
+    videos = any(p.lower().endswith(VIDEO_EXTS) for p in paths)
+    if videos:
+        from ..data.native_video import ENGINE_COUNTS
+
+        served_before = dict(ENGINE_COUNTS)
 
     sink = open(cfg.output, "w") if cfg.output else None
     emitted = 0
@@ -321,6 +364,9 @@ def main(argv=None, *, log=print) -> int:
         if sink:
             sink.close()
     log(f"[serve] scored {emitted} inputs" + (f" -> {cfg.output}" if cfg.output else ""))
+    if videos:
+        log("[serve] clips decoded per engine: " + ", ".join(
+            f"{k} {v - served_before[k]}" for k, v in ENGINE_COUNTS.items()))
     return emitted
 
 

@@ -22,8 +22,10 @@ several devices waits for ROADMAP Queue 1 item 11 (sharding moves no
 score). With ``--strict_load false`` a weight the bundle lacks keeps the
 port's seeded init (``--seed``), not the JAX package's ``PRNGKey`` init: a
 deliberate deviation (ROADMAP Queue 3, F4), so the two CLIs agree on
-complete bundles. Not ported yet, and raising when asked for: ``--mode`` other
-than ``npy`` and its flags (the video dataset modes, item 10b).
+complete bundles. ``--mode fakeavceleb|lavdf|lavdf_raw`` evaluates the
+``--subset`` of a FakeAVCeleb ``--csv_path`` or a LAV-DF ``--lavdf_json``
+(``data/video_enhanced.py``; ``lavdf_raw`` decodes the videos at
+``--frame_size``), as in JAX.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from ..data.loader import DataLoader
 from ..metrics import compute_metrics_interp
 from ..models.heads import ArcFace, arcface_apply, xception_lstm_embed, xception_lstm_features
 from ..models.serve import load_visual_bundle
-from .common import precision, raise_unported, resolve_device, to_device
+from .common import precision, resolve_device, to_device
 
 
 @dataclasses.dataclass
@@ -50,7 +52,9 @@ class Config:
 
     test_folder: str = "Dataset/processed/test"
     ckpt_path: str = "Checkpoints/XceptionLSTMV_ArcFace_Best.npz"
-    mode: str = "npy"  # the only mode ported; the video modes need decode
+    # 'npy' or the metadata modes 'fakeavceleb' (csv_path), 'lavdf' and
+    # 'lavdf_raw' (lavdf_json; the latter decodes video)
+    mode: str = "npy"
     subset: str = "test"
     csv_path: Optional[str] = None
     lavdf_json: Optional[str] = None
@@ -69,12 +73,6 @@ class Config:
     saliency_batches: int = 1
     seed: int = 0
     device: str = "cuda"
-
-
-_VIDEO_MODES = "the video dataset modes (ROADMAP Queue 1 item 10b)"
-# fields whose piece of the JAX package is not ported yet: (the item it waits for)
-_NOT_PORTED = {name: _VIDEO_MODES
-               for name in ("mode", "subset", "csv_path", "lavdf_json", "frame_size")}
 
 
 class Scorer:
@@ -153,7 +151,14 @@ def evaluate(score_fn, loader):
 
 
 def make_loader(config: Config, test_ds=None) -> DataLoader:
-    raise_unported(config, _NOT_PORTED)
+    if config.mode != "npy" and test_ds is None:
+        from ..data.video_enhanced import get_face_dataloader
+
+        return get_face_dataloader(
+            config.test_folder, mode=config.mode, subset=config.subset,
+            csv_path=config.csv_path, lavdf_json=config.lavdf_json,
+            batch_size=config.batch_size, frame_size=tuple(config.frame_size),
+            max_frames=config.max_frames, buckets=config.buckets, seed=config.seed)
     test_ds = test_ds or NpyFolderDataset(config.test_folder, kind="video",
                                           max_frames=config.max_frames)
     return DataLoader(test_ds, config.batch_size, buckets=config.buckets)

@@ -22,10 +22,11 @@ once and trains the head on them (it needs the frozen backbone and implies
 ``--backbone_bn_eval``); ``--remat true`` recomputes each backbone block in
 the backward. ``--resume`` takes a ``train_audio_state.pt`` snapshot.
 
-``--jsonl_log`` and ``--tracker`` log each epoch as in JAX
-(``utils/metric_logger.py``). Not ported yet, and raising when asked for:
-``--native_loader`` (the ctypes npy collate, ROADMAP Queue 1 item 13b) and
-the orbax backend (item 11).
+``--native_loader true`` assembles the batches in the C++ npy collate
+(``data/native_loader.py``, built from ``native/npy_collate.cc``), bit-equal
+to the Python loader's. ``--jsonl_log`` and ``--tracker`` log each epoch as
+in JAX (``utils/metric_logger.py``). Not ported yet, and raising when asked
+for: the orbax backend (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ class Config:
     # the frozen eval-BN backbone's features computed once, the head trained
     # on them (needs freeze_backbone; implies backbone_bn_eval)
     cache_features: bool = False
-    native_loader: bool = False
+    native_loader: bool = False  # the C++ npy collate (native/npy_collate.cc)
     jsonl_log: Optional[str] = None
     tracker: Optional[str] = None
     ckpt_backend: str = "npz"
@@ -91,10 +92,7 @@ class Config:
     device: str = "cuda"
 
 
-_NOT_PORTED = {
-    "native_loader": "the ctypes npy collate, data/native_loader.py (ROADMAP Queue 1 item 13b)",
-    "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-}
+_NOT_PORTED = {"ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)"}
 BUNDLE_NAME = "best_model_audio.npz"
 
 
@@ -138,9 +136,16 @@ def build(config: Config, train_ds=None, eval_ds=None):
 
     train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="audio")
     eval_ds = eval_ds or NpyFolderDataset(config.eval_folder, kind="audio")
-    train_loader = DataLoader(train_ds, config.batch_size, shuffle=False, seed=config.seed,
-                              buckets=config.buckets)
-    eval_loader = DataLoader(eval_ds, config.batch_size, buckets=config.buckets)
+    if config.native_loader:
+        from ..data.native_loader import make_native_loader
+
+        train_loader = make_native_loader(train_ds, config.batch_size, buckets=config.buckets,
+                                          seed=config.seed)
+        eval_loader = make_native_loader(eval_ds, config.batch_size, buckets=config.buckets)
+    else:
+        train_loader = DataLoader(train_ds, config.batch_size, shuffle=False, seed=config.seed,
+                                  buckets=config.buckets)
+        eval_loader = DataLoader(eval_ds, config.batch_size, buckets=config.buckets)
 
     model = XceptionLSTM(config.hidden_dim,
                          generator=torch.Generator().manual_seed(config.seed)).to(device)

@@ -24,12 +24,23 @@ evaluates margin-free, as serving scores). ``--cache_features true``
 cache of the eval-BN backbone; ``--remat true`` recomputes each block's
 activations in the backward.
 
+``--mode npy`` (the default) reads flat ``real_*`` / ``fake_*`` npy trees.
+The metadata modes read the reference's datasets through
+``data/video_enhanced.py``: ``fakeavceleb`` (``--csv_path`` meta_data.csv,
+npy items), ``lavdf`` (``--lavdf_json`` metadata.json, npy items) and
+``lavdf_raw`` (the same, video files decoded by the native engines or cv2,
+resized to ``--frame_size``, optionally face-cropped with
+``--use_face_detection``), the ``train`` subset from ``--train_folder`` and
+``eval`` from ``--eval_folder``; ``--sample_percentage`` and
+``--augment_minority`` draw the training samples as the JAX CLI does, and
+``--num_workers`` loads a batch's clips on that many threads (in every
+mode; the batches do not change).
+
 ``--jsonl_log`` writes one JSON object per epoch and ``--tracker`` adds
 TensorBoard or wandb sinks (``utils/metric_logger.py``), as in JAX. Not
-ported yet, and raising when asked for: the video dataset modes and their
-flags (decode; ROADMAP Queue 1 item 10b) and the orbax backend (item 11).
-The train-state snapshot for ``--resume`` is a ``torch.save`` file,
-``train_visual_state.pt``.
+ported yet, and raising when asked for: the orbax backend (ROADMAP Queue 1
+item 11). The train-state snapshot for ``--resume`` is a ``torch.save``
+file, ``train_visual_state.pt``.
 """
 from __future__ import annotations
 
@@ -82,7 +93,9 @@ class Config:
     plateau_factor: float = 0.5
     plateau_patience: int = 3
     max_frames: int = 50
-    mode: str = "npy"  # the only mode ported; the video modes need decode
+    # 'npy' (flat filename-label tree) or the metadata modes 'fakeavceleb',
+    # 'lavdf' and 'lavdf_raw' (decoded video)
+    mode: str = "npy"
     csv_path: Optional[str] = None
     lavdf_json: Optional[str] = None
     use_face_detection: bool = False
@@ -113,24 +126,14 @@ class Config:
 
 
 # fields whose piece of the JAX package is not ported yet: (the item it waits for)
-_NOT_PORTED = {
-    "csv_path": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "lavdf_json": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "use_face_detection": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "frame_size": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "augment_minority": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "sample_percentage": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "num_workers": "the video dataset modes (ROADMAP Queue 1 item 10b)",
-    "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-}
+_NOT_PORTED = {"ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)"}
+MODES = ("npy", "fakeavceleb", "lavdf", "lavdf_raw")
 
 
 def check_config(config: Config) -> None:
     """Raise on a flag whose piece is not ported, never ignore it."""
-    if config.mode != "npy":
-        raise NotImplementedError(
-            f"--mode {config.mode}: only 'npy' is ported; the video modes wait for the "
-            "video decode (ROADMAP Queue 1 item 10b)")
+    if config.mode not in MODES:
+        raise ValueError(f"--mode {config.mode}: one of {', '.join(MODES)}")
     raise_unported(config, _NOT_PORTED)
     if config.cache_features:
         if config.freeze_epochs <= 0:
@@ -176,19 +179,40 @@ def make_forward(config: Config, cdtype: torch.dtype):
     return forward
 
 
+def make_loaders(config: Config, train_ds=None, eval_ds=None):
+    """``(train_loader, eval_loader)`` of ``config.mode``; given datasets take
+    the npy mode's loaders."""
+    if config.mode != "npy" and train_ds is None:
+        from ..data.video_enhanced import get_face_dataloader
+
+        common = dict(
+            mode=config.mode, csv_path=config.csv_path, lavdf_json=config.lavdf_json,
+            batch_size=config.batch_size, use_face_detection=config.use_face_detection,
+            frame_size=tuple(config.frame_size), max_frames=config.max_frames,
+            buckets=config.buckets, seed=config.seed, num_workers=config.num_workers,
+        )
+        train_loader = get_face_dataloader(
+            config.train_folder, subset="train", shuffle=config.shuffle,
+            augment_minority=config.augment_minority,
+            sample_percentage=config.sample_percentage, **common)
+        return train_loader, get_face_dataloader(config.eval_folder, subset="eval", **common)
+    train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="video",
+                                            max_frames=config.max_frames)
+    eval_ds = eval_ds or NpyFolderDataset(config.eval_folder, kind="video",
+                                          max_frames=config.max_frames)
+    return (DataLoader(train_ds, config.batch_size, shuffle=config.shuffle, seed=config.seed,
+                       buckets=config.buckets, item_workers=config.num_workers),
+            DataLoader(eval_ds, config.batch_size, buckets=config.buckets,
+                       item_workers=config.num_workers))
+
+
 def build(config: Config, train_ds=None, eval_ds=None):
     """-> ``(train_loader, eval_loader, state, train_step, eval_step)``."""
     check_config(config)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
 
-    train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="video",
-                                            max_frames=config.max_frames)
-    eval_ds = eval_ds or NpyFolderDataset(config.eval_folder, kind="video",
-                                          max_frames=config.max_frames)
-    train_loader = DataLoader(train_ds, config.batch_size, shuffle=config.shuffle,
-                              seed=config.seed, buckets=config.buckets)
-    eval_loader = DataLoader(eval_ds, config.batch_size, buckets=config.buckets)
+    train_loader, eval_loader = make_loaders(config, train_ds, eval_ds)
 
     model = XceptionLSTMArcFace(
         config.hidden_dim, generator=torch.Generator().manual_seed(config.seed)).to(device)

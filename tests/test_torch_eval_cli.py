@@ -34,6 +34,7 @@ Bars and CPU readings (max |d|):
 - saliency maps (one per sample: its frames, or its frames x AUs) within
   1e-3 of the JAX map's max (readings: visual 1.7e-6, AU-patch 1.0e-6 of it).
 """
+import json
 import os
 
 import numpy as np
@@ -261,10 +262,53 @@ def test_visual_saliency_matches_jax(visual, root):
     assert os.path.getsize(root / "tsal_v" / "saliency_batch0.png") > 1000
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fakeavceleb"], ["--csv_path", "meta.csv"]])
-def test_visual_video_modes_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ttv.make_loader(ttv.parse_config(ttv.Config, argv, prog="test_visual"))
+@pytest.fixture(scope="module")
+def video_root(tmp_path_factory):
+    """Four MJPEG clips (cv2) with their frames as ``<file>.npy``, a LAV-DF
+    metadata.json (dev 2, test 2) and a FakeAVCeleb csv in the official
+    schema over the npy copies (hash-split)."""
+    cv2 = pytest.importorskip("cv2")
+    root = tmp_path_factory.mktemp("videos")
+    rng = np.random.default_rng(16)
+    meta, rows = [], ["source,target1,method,category,type,race,gender,filename,path"]
+    for i, split in enumerate(("dev", "test", "test", "dev")):
+        frames = rng.integers(0, 256, (2 + i, 24, 32, 3), np.uint8)
+        w = cv2.VideoWriter(str(root / f"v{i}.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 10, (32, 24))
+        for f in frames:
+            w.write(f)
+        w.release()
+        np.save(root / f"v{i}.avi.npy", frames)
+        meta.append({"file": f"v{i}.avi", "split": split, "fake_periods": [[0, 1]] * (i % 2)})
+        typ = "FakeVideo-FakeAudio" if i % 2 else "RealVideo-RealAudio"
+        rows.append(f"s,t,m,c,{typ},r,g,v{i}.avi.npy,.")
+    (root / "metadata.json").write_text(json.dumps(meta))
+    (root / "meta.csv").write_text("\n".join(rows))
+    return root
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "fakeavceleb", "--csv_path", "meta.csv", "--subset", "train"],
+    ["--mode", "lavdf_raw", "--lavdf_json", "metadata.json", "--subset", "dev",
+     "--frame_size", "16,16"],
+])
+def test_visual_video_modes_build(argv, video_root):
+    """The dataset modes build ``test_visual``'s loader: the JAX CLI's
+    samples and batches (``get_face_dataloader`` with its arguments)."""
+    from multimodal_deepfake_detection_tpu.data.video_enhanced import get_face_dataloader
+
+    argv = [str(video_root / a) if a.endswith((".csv", ".json")) else a for a in argv]
+    config = ttv.parse_config(ttv.Config, argv + ["--test_folder", str(video_root),
+                                                  "--max_frames", "4", "--buckets", "4"],
+                              prog="test_visual")
+    loader = ttv.make_loader(config)
+    want = get_face_dataloader(
+        str(video_root), mode=config.mode, subset=config.subset, csv_path=config.csv_path,
+        lavdf_json=config.lavdf_json, batch_size=config.batch_size,
+        frame_size=tuple(config.frame_size), max_frames=4, buckets=(4,), seed=config.seed)
+    assert loader.dataset.samples == want.dataset.samples and len(want.dataset.samples) >= 2
+    for got, ref in zip(loader, want):
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

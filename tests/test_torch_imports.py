@@ -111,6 +111,16 @@ import multimodal_deepfake_detection_tpu_torch.utils.saliency
 import multimodal_deepfake_detection_tpu_torch.utils.visualize
 import multimodal_deepfake_detection_tpu_torch.utils.metric_logger
 import multimodal_deepfake_detection_tpu_torch.utils.profiling
+import multimodal_deepfake_detection_tpu_torch.data.face_detect
+import multimodal_deepfake_detection_tpu_torch.data.native_build
+import multimodal_deepfake_detection_tpu_torch.data.native_video
+import multimodal_deepfake_detection_tpu_torch.data.video_enhanced
+import multimodal_deepfake_detection_tpu_torch.data.native_loader
+import multimodal_deepfake_detection_tpu_torch.data.preprocess
+import multimodal_deepfake_detection_tpu_torch.utils.torch_port
+import multimodal_deepfake_detection_tpu_torch.cli.import_torch
+import multimodal_deepfake_detection_tpu_torch.cli.preprocess_faces
+import multimodal_deepfake_detection_tpu_torch.cli.preprocess_audio
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
@@ -154,6 +164,40 @@ results = test_au_patch.main(["--data_root", root + "/patches", "--ckpt_path",
                               "--device", "cpu"], log=report.append)
 assert report[0].startswith("AUC: ") and report[1].startswith("[thr=0.5] Acc=")
 assert sorted(results)[:3] == ["AUC", "EER", "pAUC"]
+import numpy as np
+import torch
+from multimodal_deepfake_detection_tpu_torch.data import native_loader, native_video
+from multimodal_deepfake_detection_tpu_torch.data.datasets import NpyFolderDataset
+from multimodal_deepfake_detection_tpu_torch.data.loader import DataLoader
+if native_loader.native_available():  # the C++ collate of the MFCC tree, as the Python loader
+    ds = NpyFolderDataset(root + "/mfcc/train", kind="audio")
+    native = next(iter(native_loader.make_native_loader(ds, 2, buckets=(3,), prefetch=0)))
+    python = next(iter(DataLoader(ds, 2, buckets=(3,), prefetch=0)))
+    assert all(np.array_equal(a, b) for a, b in zip(native, python))
+try:
+    import cv2
+except ImportError:
+    cv2 = None
+if cv2 is not None and native_video.native_video_available():  # a native decode of an MJPEG clip
+    w = cv2.VideoWriter(root + "/c.avi", cv2.VideoWriter_fourcc(*"MJPG"), 10, (16, 8))
+    for i in range(3):
+        w.write(np.full((8, 16, 3), 40 * i, np.uint8))
+    w.release()
+    assert native_video.decode_video(root + "/c.avi", size=(8, 8)).shape == (3, 8, 8, 3)
+    assert native_video.ENGINE_COUNTS["mjpeg"] == 1
+from multimodal_deepfake_detection_tpu_torch.cli import import_torch
+from multimodal_deepfake_detection_tpu_torch.core.checkpoint import (_flatten_with_paths,
+                                                                     load_bundle)
+from multimodal_deepfake_detection_tpu_torch.models.heads import ArcFace, XceptionLSTM
+from multimodal_deepfake_detection_tpu_torch.utils.jax_weights import (arcface_to_jax,
+                                                                       xception_lstm_to_jax)
+params, state = xception_lstm_to_jax(XceptionLSTM(4, generator=torch.Generator().manual_seed(1)))
+trees = {"model": params, "state": state, "arcface": arcface_to_jax(ArcFace(4, 2))}
+torch.save(chip_smoke.reference_state_dict(torch, trees), root + "/ref.pth")
+import_torch.main(["--src", root + "/ref.pth", "--dst", root + "/imported.npz"],
+                  log=lambda s: None)  # a reference .pth back to the bundle it came from
+got, want = _flatten_with_paths(load_bundle(root + "/imported.npz")), _flatten_with_paths(trees)
+assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
 """ + _NO_JAX_LOADED
 
 # one tiny export under the blocker, in a process of its own: beside the
@@ -186,8 +230,11 @@ def test_port_imports_without_jax(tmp_path):
     """Every module of the port imports, the AU engines of its CLI build
     from bundles, ``train_visual``, ``train_au_patch``, ``train_au_face``
     and ``train_audio`` each train an epoch (the last three with
-    ``--jsonl_log``), and ``test_au_patch`` evaluates the AU-patch bundle to
-    its report, with JAX blocked."""
+    ``--jsonl_log``), ``test_au_patch`` evaluates the AU-patch bundle to
+    its report, the native collate batches the MFCC tree as the Python
+    loader does, the native engine decodes an MJPEG clip (where cv2 writes
+    one) and ``import_torch`` turns a reference ``.pth`` back into the
+    bundle it came from, with JAX blocked."""
     g = torch.Generator().manual_seed(0)
     save_bundle(str(tmp_path / "au_face.npz"),
                 dict(zip(("model", "state"), au_face_to_jax(AUFaceDetector(4, generator=g)))))

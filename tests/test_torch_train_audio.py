@@ -175,8 +175,30 @@ def test_train_audio_cli_bundle_serves_in_both_packages(audio_root, tmp_path, ex
     np.testing.assert_allclose(tsc.score(waves), jsc.score(waves), rtol=0, atol=1e-4)
 
 
+def test_native_loader_builds(tmp_path):
+    """``--native_loader true`` builds the CLI on the C++ npy collate
+    (``data/native_loader.py``): the train and eval batches are the Python
+    loader's, bit for bit."""
+    from multimodal_deepfake_detection_tpu_torch.data.native_loader import _IndexDataset
+
+    tree = make_audio_npy_tree(str(tmp_path), n_per_class=2, frames=5, seed=9)
+    argv = ["--train_folder", tree + "/train", "--eval_folder", tree + "/eval", "--buckets", "6",
+            "--hidden_dim", str(HIDDEN), "--device", "cpu"]
+    parse = lambda extra: taudio_cli.parse_config(taudio_cli.Config, argv + extra,  # noqa: E731
+                                                  prog="train_audio")
+    native = taudio_cli.build(parse(["--native_loader", "true"]))
+    python = taudio_cli.build(parse([]))
+    assert isinstance(native[0].dataset, _IndexDataset)
+    for got, want in ((native[0], python[0]), (native[1], python[1])):
+        pairs = list(zip(got, want))
+        assert len(pairs) == len(want) > 0
+        for g, w in pairs:
+            for a, b in zip(g, w):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv,err,match", [
-    (["--native_loader", "true"], NotImplementedError, "item 13b"),
     (["--ckpt_backend", "orbax"], NotImplementedError, "item 11"),
     (["--cache_features", "true", "--freeze_backbone", "false"], ValueError, "freeze_backbone"),
 ])

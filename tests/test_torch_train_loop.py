@@ -13,10 +13,12 @@
   the eval clips within the serving tests' fp32 bar (atol 1e-4) of the
   port's scorer, and the port's scores are within the same bar of the
   trainer's eval probabilities of the best epoch (unfolded against folded).
-  Flags whose piece is not ported raise, as does ``--device cuda`` where
-  there is no CUDA.
+  The dataset-mode flags (``--mode fakeavceleb|lavdf|lavdf_raw`` and
+  theirs) build loaders whose batches are the JAX CLI's; flags whose piece
+  is not ported raise, as does ``--device cuda`` where there is no CUDA.
 """
 import functools
+import json
 import os
 
 import jax
@@ -265,14 +267,71 @@ def test_train_visual_cli_bundle_serves_in_both_packages(tree, tmp_path, extra, 
     np.testing.assert_allclose(ours, probs, **SCORE_TOL)
 
 
+@pytest.fixture(scope="module")
+def video_tree(tmp_path_factory):
+    """Six MJPEG clips (cv2) with their frames as ``<file>.npy``, a LAV-DF
+    metadata.json (train 4, dev 2) and a FakeAVCeleb ``path,label,split``
+    csv over the npy copies."""
+    cv2 = pytest.importorskip("cv2")
+    root = tmp_path_factory.mktemp("videos")
+    rng = np.random.default_rng(12)
+    meta, rows = [], ["path,label,split"]
+    for i, split in enumerate(("train",) * 4 + ("dev",) * 2):
+        frames = rng.integers(0, 256, (3 + i % 3, 40, 48, 3), np.uint8)
+        name = f"v{i}.avi"
+        w = cv2.VideoWriter(str(root / name), cv2.VideoWriter_fourcc(*"MJPG"), 10, (48, 40))
+        for f in frames:
+            w.write(f)
+        w.release()
+        np.save(root / f"{name}.npy", frames)
+        meta.append({"file": name, "split": split, "n_fakes": i % 2})
+        rows.append(f"{name}.npy,{'fake' if i % 2 else 'real'},{split}")
+    (root / "metadata.json").write_text(json.dumps(meta))
+    (root / "meta.csv").write_text("\n".join(rows))
+    return str(root)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "fakeavceleb", "--csv_path", "meta.csv", "--augment_minority", "true"],
+    ["--mode", "lavdf", "--lavdf_json", "metadata.json", "--sample_percentage", "0.5"],
+    ["--mode", "lavdf_raw", "--lavdf_json", "metadata.json", "--use_face_detection", "true"],
+    ["--mode", "lavdf_raw", "--lavdf_json", "metadata.json", "--num_workers", "2"],
+    ["--mode", "lavdf_raw", "--lavdf_json", "metadata.json", "--frame_size", "24,16"],
+])
+def test_video_flags_build(argv, video_tree):
+    """The dataset-mode flags build the CLI: its train and eval loaders yield
+    the batches of the JAX CLI's (``get_face_dataloader`` with the arguments
+    its ``build`` passes), bit for bit."""
+    from multimodal_deepfake_detection_tpu.data.video_enhanced import get_face_dataloader
+
+    argv = [os.path.join(video_tree, a) if a.endswith((".csv", ".json")) else a for a in argv]
+    config = tv.parse_config(tv.Config, argv + [
+        "--train_folder", video_tree, "--eval_folder", video_tree, "--max_frames", "4",
+        "--buckets", "4", "--batch_size", "2", "--hidden_dim", "4", "--device", "cpu"],
+        prog="train_visual")
+    train_loader, eval_loader, state, _, _ = tv.build(config)
+    assert state.step == 0
+    common = dict(mode=config.mode, csv_path=config.csv_path, lavdf_json=config.lavdf_json,
+                  batch_size=2, use_face_detection=config.use_face_detection,
+                  frame_size=tuple(config.frame_size), max_frames=4, buckets=(4,),
+                  seed=config.seed, num_workers=config.num_workers)
+    want = (get_face_dataloader(video_tree, subset="train", shuffle=config.shuffle,
+                                augment_minority=config.augment_minority,
+                                sample_percentage=config.sample_percentage, **common),
+            get_face_dataloader(video_tree, subset="eval", **common))
+    for got, ref in zip((train_loader, eval_loader), want):
+        pairs = list(zip(got, ref))
+        assert len(pairs) == len(ref) > 0
+        for g, r in pairs:
+            for a, b in zip(g, r):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv,err", [
-    (["--mode", "fakeavceleb"], NotImplementedError),
-    (["--lavdf_json", "x.json"], NotImplementedError),
-    (["--use_face_detection", "true"], NotImplementedError),
-    (["--ckpt_backend", "orbax"], NotImplementedError),
-    (["--num_workers", "2"], NotImplementedError),
-    (["--frame_size", "64,64"], NotImplementedError),
+    (["--ckpt_backend", "orbax"], NotImplementedError),  # ROADMAP item 11
     (["--cache_features", "true"], ValueError),  # shuffles by default
+    (["--mode", "csv"], ValueError),
 ])
 def test_unported_flags_raise(argv, err):
     with pytest.raises(err):
