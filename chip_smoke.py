@@ -168,13 +168,36 @@ raises and exits non-zero:
    ``.pth``: the bundle equal to the original array for array, served to
    the original's scores (K1 counted), its fp32 scores card against CPU
    within 1e-4. What the host lacks is named, and what it stops is skipped
-   with a line, not failed.
+   with a line, not failed;
+13. multi-device runs and versioned checkpoints (``parallel/``,
+   ``core/orbax_ckpt.py``; the host has one GPU): ``train_visual``'s step at
+   its defaults (4 x 50 frames at 224^2, bf16, unfrozen) through the
+   data-parallel step over an NCCL world of one, bit-equal to the step
+   without a process group; ``train_visual --ckpt_backend orbax`` on phase
+   8's tree for 2 epochs (step directories 1 and 2), step 2 restored into a
+   fresh build and one more step from it and from the uninterrupted run's
+   state, bit-equal (cuDNN deterministic), then ``--resume auto`` and its
+   log line; the visual engine sharded over ``[cuda:0, cuda:0]`` on phase
+   4's 5 clips (one pad row) on the fp, ``w8a8-pallas``, ``fuse_entry +
+   fuse_exit`` and ``entry_pair + middle_taps bf16`` paths, counted (each
+   replica's launches), against the unsharded engine (fp32 rtol 1e-5 / atol
+   1e-6, bf16 at phase 4's score bars); ``cli/serve.py --use_mesh true``,
+   which on one GPU scores unsharded and says so, identical scores;
+   ``entry()``; and, in other processes started first, the tests' 4-rank
+   gloo cluster on this host's torch: the 2-rank DP step of
+   ``tests/torch_mp_worker.py`` (seeded weights) against one process at
+   ``tests/test_multichip.py``'s bars, with its per-rank control, the
+   rank-sharded loader against the one-process loader, and the ranks of
+   ``dryrun_multichip(4, device="cpu")`` (the DP x TP step held to one
+   process, with its planted control), beside ``dryrun_multichip(1,
+   device="cuda")`` (NCCL).
 
 The line before the last is the card's ``name, power.limit``; the one before
 that the ``{"kernels": [...]}`` record (each kernel's ``audio`` entry holds
 the same readings at the audio path's shapes, its ``artifact`` entry the
-launches per backbone call of the exported program that runs it); the last
-line is ``{"ok": true, "device": {...}}``.
+launches per backbone call of the exported program that runs it, its
+``mesh`` entry its launches in phase 13's bf16 sharded runs, two replicas a
+call); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -188,6 +211,7 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 1.6e-2  # two bf16 ulps at unit scale
 MEAN_TOL = 1e-3
 BIT_EQUAL_MIN = 0.999  # int8 kernels: the integer path is exact, 1.0 expected
@@ -717,9 +741,10 @@ def counters():
             "entry_pair": entry_pair, "sepconv_unit": sepconv_unit}
 
 
-def counted(torch, label, run, expected: dict):
+def counted(torch, label, run, expected: dict, into: dict = None):
     """``run()`` with every launch counter set to 0 just before and read just
-    after; fails unless the counts are ``expected``. Returns ``run()``'s value."""
+    after; fails unless the counts are ``expected``, and adds them to
+    ``into`` when given. Returns ``run()``'s value."""
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
@@ -729,6 +754,8 @@ def counted(torch, label, run, expected: dict):
     say(f"{label}: launches {counts} (expected {expected})")
     if counts != expected:
         raise AssertionError(f"{label}: launch counts {counts}, expected {expected}")
+    for name, n in counts.items() if into is not None else ():
+        into[name] = into.get(name, 0) + n
     return out
 
 
@@ -4203,6 +4230,381 @@ def phase_ingest(torch, workdir: str, smi: str) -> None:
         say(f"ingest {label} took {time.perf_counter() - t0:.1f} s")
     say(f"phase 12 (ingestion) took {time.perf_counter() - t_phase:.1f} s")
 
+# ---------------------------------------------------------------------------
+# Phase 13: multi-device runs and versioned checkpoints (parallel/,
+# core/orbax_ckpt.py). The card host has one GPU: NCCL runs a world of one,
+# the sharded scorer a device list that names cuda:0 twice, and the
+# cross-process semantics rerun as gloo clusters on the host's CPU.
+# ---------------------------------------------------------------------------
+
+MESH_PATHS = (  # label, VisualScorer keywords, launches per backbone call, fp32 too
+    ("fp", {}, dict(k1=8), True),
+    ("w8a8-pallas", {"quantize": "w8a8-pallas"}, dict(k2=8, dw=10), True),
+    ("fuse_entry + fuse_exit", {"fuse_entry": True, "fuse_exit": True},
+     dict(k1=8, k3=4, k5=2), False),
+    ("entry_pair + middle_taps bf16", {"entry_pair": True, "middle_taps": "bf16"},
+     dict(k1b=8, k4=4), False),
+)
+MESH_FP32_BARS = dict(rtol=1e-5, atol=1e-6)  # sharded against unsharded scores, fp32
+# the 2-rank gloo step against one process: tests/test_multichip.py's bars
+DP_TRAIN_BARS = (1e-3, 1e-4)  # train-mode BN: loss rel, BN running statistics rel norm
+DP_EVAL_BARS = (1e-5, 1e-3, 1e-6)  # eval-mode BN: loss rel, gradients rtol, params rel norm
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms for the ``with`` block (two runs of
+    one step are then bit-equal), torch's settings restored after."""
+
+    def __init__(self, torch):
+        self.b = torch.backends.cudnn
+
+    def __enter__(self):
+        self.before = self.b.deterministic, self.b.benchmark
+        self.b.deterministic, self.b.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.b.deterministic, self.b.benchmark = self.before
+
+
+def _params(state) -> list:
+    return [p.detach().clone() for p in state.model.parameters()] + [
+        b.detach().clone() for b in state.model.buffers()]
+
+
+def _bit_equal(torch, label, a, b) -> None:
+    """``a = (loss, probs, tensors)`` and ``b`` bit-equal, or the largest
+    difference is printed and the phase fails."""
+    same = (float(a[0]) == float(b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+    worst = max((x.float() - y.float()).abs().max().item() for x, y in zip(a[2], b[2]))
+    say(f"{label}: loss {float(a[0]):.6f} vs {float(b[0]):.6f}, params and BN statistics "
+        f"max|d| {worst:.3e}: {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"{label}: not bit-equal")
+
+
+def parallel_world_of_one(torch, smi: str) -> None:
+    """13a: ``train_visual``'s step at its defaults (unfrozen) through the
+    data-parallel step over an NCCL world of one, against the same step
+    without a process group: a one-rank all-reduce is a copy, so loss,
+    probabilities, parameters and BN statistics must be bit-equal."""
+    import torch.distributed as dist
+
+    from multimodal_deepfake_detection_tpu_torch.cli import train_visual as tv
+    from multimodal_deepfake_detection_tpu_torch.parallel.distributed import free_port, initialize
+
+    B, T, H = TRAIN_STEP
+    cfg = tv.Config(device="cuda")
+    clips = _Clips(B, (T, H, H, 3))
+    batch = train_batch(B, T, H, 131, lengths=(T, T, T, T - 7))
+
+    def step():
+        _, _, state, train_step, _ = tv.build(cfg, train_ds=clips, eval_ds=clips)
+        with Deterministic(torch):
+            _, loss, probs = train_step(state, batch, 0, cfg.freeze_epochs)
+        torch.cuda.synchronize()
+        return loss, probs, _params(state)
+
+    ref = step()
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        say(f"NCCL world of one: backend {dist.get_backend()}, world {dist.get_world_size()}")
+        dp = step()
+    finally:
+        dist.destroy_process_group()
+    _bit_equal(torch, f"train_visual step (B={B} x T={T} at {H}^2, bf16, hidden "
+               f"{cfg.hidden_dim}) over an NCCL world of one vs no process group [{smi}]",
+               dp, ref)
+
+
+def parallel_orbax(torch, workdir: str, smi: str) -> None:
+    """13b: ``train_visual --ckpt_backend orbax`` on phase 8's tree for 2
+    epochs: the step directories; the state restored into a fresh build and
+    one more step from it and from the uninterrupted run's state, bit-equal;
+    then ``--resume auto`` through the CLI and its log line."""
+    from multimodal_deepfake_detection_tpu_torch.cli import train_visual as tv
+    from multimodal_deepfake_detection_tpu_torch.cli.common import ResumeState
+    from multimodal_deepfake_detection_tpu_torch.core.config import parse_config
+    from multimodal_deepfake_detection_tpu_torch.data.synthetic import make_face_npy_tree
+
+    tree = os.path.join(workdir, "train_faces")
+    if not os.path.exists(tree):
+        make_face_npy_tree(tree, seed=84, **TRAIN_TREE)
+    ck = os.path.join(workdir, "train_orbax")
+    base = ["--train_folder", f"{tree}/train", "--eval_folder", f"{tree}/eval",
+            "--checkpoint_dir", ck, "--freeze_epochs", "1", "--eval_with_margin", "false",
+            "--compute_dtype", "float32", "--device", "cuda", "--ckpt_backend", "orbax"]
+    argv = base + ["--epochs", "2"]
+    live, build = {}, tv.build
+
+    def capture(*a, **kw):
+        out = build(*a, **kw)
+        live["state"], live["step"], live["loader"] = out[2], out[3], out[0]
+        return out
+
+    tv.build = capture
+    try:
+        t0 = time.perf_counter()
+        with Deterministic(torch):
+            tv.main(argv, log=lambda s: None)
+        secs = time.perf_counter() - t0
+    finally:
+        tv.build = build
+    steps = sorted(os.listdir(os.path.join(ck, "train_visual_orbax")))
+    say(f"train_visual --ckpt_backend orbax, 2 epochs ({secs:.1f} s): step directories {steps}, "
+        f"{sorted(os.listdir(os.path.join(ck, 'train_visual_orbax', '2')))}")
+    if steps != ["1", "2"]:
+        raise AssertionError(f"orbax step directories {steps}, expected ['1', '2']")
+    config = parse_config(tv.Config, argv + ["--resume", "auto"], prog="train_visual")
+    _, _, restored, step, _ = tv.build(config)
+    logs = []
+    if not ResumeState(config, "train_visual").resume(restored, "auto", logs.append):
+        raise AssertionError("nothing restored from the orbax directory")
+    batch = next(iter(live["loader"]))
+    with Deterministic(torch):
+        outs = [step(s, batch, 7, 2)[1:] for s in (live["state"], restored)]
+    torch.cuda.synchronize()
+    _bit_equal(torch, f"orbax step 2 restored into a fresh build, one more step vs the "
+               f"uninterrupted run [{smi}]", outs[1] + (_params(restored),),
+               outs[0] + (_params(live["state"]),))
+    logs = []
+    tv.main(base + ["--epochs", "1", "--resume", "auto"], log=logs.append)
+    say(f"train_visual --resume auto: {logs[0]!r}")
+    if logs[0] != "resumed from orbax step 2":
+        raise AssertionError(f"--resume auto logged {logs[:2]}")
+
+
+def parallel_scorers(torch, workdir: str, smi: str) -> dict:
+    """13d: the visual engine sharded over ``[cuda:0, cuda:0]`` on phase 4's
+    clips (B = 5: one pad row), counted, on every kernel path, against the
+    unsharded engine; then ``cli/serve.py --use_mesh true`` on this one-GPU
+    host. Returns each kernel's launches on the sharded runs."""
+    from multimodal_deepfake_detection_tpu_torch.cli import serve as cli_serve
+    from multimodal_deepfake_detection_tpu_torch.cli.serve import _pad_stack
+    from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+
+    bundle, clip_dir, clips = visual_inputs(torch, workdir)
+    frames, lengths = _pad_stack(clips)
+    mesh = [torch.device("cuda", 0)] * 2
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, kw, per_backbone, fp32 in MESH_PATHS:
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if fp32 else ()):
+            args = dict(compute_dtype=dtype, device="cuda", buckets=(25, 50, 75), **kw)
+            single = VisualScorer.from_bundle(bundle, **args)
+            sharded = VisualScorer.from_bundle(bundle, mesh=mesh, **args)
+            if "quantize" in kw:  # one calibration, on the first batch, for both
+                single.calibrate(frames)
+                sharded.qbackbone = single.qbackbone
+            want = single.score(frames, lengths)
+            name = f"sharded {label} {str(dtype)[6:]} over [cuda:0, cuda:0] (B={len(clips)})"
+            got = counted(torch, name, lambda: sharded.score(frames, lengths),
+                          per_call(2, **per_backbone),
+                          into=launches if dtype == torch.bfloat16 else None)
+            d = float(np.abs(got - want).max())
+            if dtype == torch.float32:
+                bar = f"rtol 1e-5 / atol 1e-6"
+                ok = np.allclose(got, want, **MESH_FP32_BARS)
+            else:
+                tol = QUANT_KERNEL_BARS[1] if "quantize" in kw else SCORE_TOL
+                bar, ok = f"<= {tol:.0e}", d <= tol
+            say(f"{name} vs unsharded: scores max|d| {d:.3e} ({bar}) [{smi}]")
+            if not ok or got.shape != want.shape:
+                raise AssertionError(f"{name}: disagrees with the unsharded engine")
+    argv = visual_argv(bundle, clip_dir) + ["--compute_dtype", "bfloat16", "--device", "cuda"]
+    runs = {}
+    for flags in ([], ["--use_mesh", "true"]):
+        logs = []
+        counted(torch, f"cli/serve.py {' '.join(flags) or '(unsharded)'}",
+                lambda: cli_serve.main(argv + flags, log=logs.append),
+                per_call(-(-len(clips) // BATCH_SIZE), k1=8))
+        runs[bool(flags)] = logs
+    said = [ln for ln in runs[True] if "--use_mesh" in ln]
+    scores = [[ln for ln in runs[k] if ln.startswith("{")] for k in (False, True)]
+    say(f"cli/serve.py --use_mesh true on {torch.cuda.device_count()} GPU: {said}; "
+        f"{len(scores[1])} scores identical to the unsharded run: {scores[0] == scores[1]}")
+    if not said or "unsharded" not in said[0] or scores[0] != scores[1]:
+        raise AssertionError("--use_mesh on one GPU must score unsharded, identically")
+    return launches
+
+
+def _dp_cluster(workdir: str):
+    """13f: the tests' 4-rank gloo cluster of ``tests/torch_mp_worker.py``,
+    started in the background (a thread waits on it): ranks 0 and 1 run the
+    DP step on the compact model (seeded weights), then every rank reads an
+    epoch of the rank-sharded loader and runs its rank of
+    ``dryrun_multichip(4, device="cpu")``. Returns ``(thread, its result
+    holder, the initial state dict, output directory)``."""
+    import threading
+
+    import torch
+
+    from multimodal_deepfake_detection_tpu_torch.parallel.distributed import free_port
+    from multimodal_deepfake_detection_tpu_torch.parallel.dryrun import spawn_ranks
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_mp_worker as W
+
+    out = os.path.join(workdir, "dp_cluster")
+    os.makedirs(out, exist_ok=True)
+    torch.manual_seed(0)
+    model = W.Compact()
+    with torch.no_grad():
+        model.backbone.conv.normal_(0, (2.0 / (9 * 8)) ** 0.5)
+    state = model.state_dict()
+    port, held = free_port(), {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            held["results"] = spawn_ranks(4, lambda r: [
+                sys.executable, os.path.join(REPO, "tests", "torch_mp_worker.py"), str(r), "4",
+                str(port), out, os.path.join(out, "dcp")],
+                feed=lambda: W.state_bytes(state), timeout=600)
+        except BaseException as e:  # re-raised by parallel_dp_cluster
+            held["results"] = e
+        held["secs"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, held, state, out
+
+
+def _rel_norm(ref: dict, got: dict) -> float:
+    sq = sum(float(np.sum(ref[k] ** 2)) for k in ref)
+    return float(np.sqrt(sum(float(np.sum((ref[k] - got[k]) ** 2)) for k in ref) / sq))
+
+
+def _grads_hold(ref: dict, got: dict, rtol: float) -> bool:
+    """tests/test_multichip.py's rule: a leaf whose reference norm is below
+    1e-3 of the largest must stay below 2e-3 of it; every other within rtol."""
+    top = max(float(np.linalg.norm(v)) for v in ref.values())
+    for k, a in ref.items():
+        an, bn = float(np.linalg.norm(a)), float(np.linalg.norm(got[k]))
+        if an < 1e-3 * top:
+            if bn >= 2e-3 * top:
+                return False
+        elif float(np.linalg.norm(a - got[k])) / an >= rtol:
+            return False
+    return True
+
+
+def _dp_held(ref: dict, got: dict, case: str) -> tuple:
+    tree = lambda r, p: {k[len(p):]: v for k, v in r.items() if k.startswith(p)}  # noqa: E731
+    loss = abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    if case.endswith("train"):
+        bn = _rel_norm(tree(ref, "bn/"), tree(got, "bn/"))
+        ok = loss < DP_TRAIN_BARS[0] and bn < DP_TRAIN_BARS[1]
+        return ok, f"loss rel {loss:.2e}, BN {bn:.2e}"
+    params = _rel_norm(tree(ref, "param/"), tree(got, "param/"))
+    grads = _grads_hold(tree(ref, "grad/"), tree(got, "grad/"), DP_EVAL_BARS[1])
+    return ((loss < DP_EVAL_BARS[0] and grads and params < DP_EVAL_BARS[2]),
+            f"loss rel {loss:.2e}, grads {'hold' if grads else 'FAIL'}, params {params:.2e}")
+
+
+def parallel_dp_cluster(torch, cluster) -> tuple:
+    """13f: the cluster's 2-rank gloo step against the same step in one
+    process, at tests/test_multichip.py's bars, and its per-rank control,
+    which must miss them; its rank-sharded loader against the one-process
+    loader's rows, each item read once. Returns ``(the dry run's rank 0
+    results, the cluster's seconds)``."""
+    import torch_mp_worker as W
+
+    from multimodal_deepfake_detection_tpu_torch.data.loader import DataLoader
+    from multimodal_deepfake_detection_tpu_torch.parallel.dryrun import check_ranks
+    from multimodal_deepfake_detection_tpu_torch.parallel.mesh import data_sharding
+
+    thread, held, state, out = cluster
+    thread.join()
+    if isinstance(held["results"], BaseException):
+        raise held["results"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for case in W.CASES:
+            model = W.Compact()
+            model.load_state_dict(state)
+            ref = W.run_case(case, model)
+            got = [dict(np.load(os.path.join(out, f"{case}_rank{r}.npz"))) for r in range(2)]
+            ctl = dict(np.load(os.path.join(out, f"ddp_{case}_rank0.npz")))
+            ok, what = _dp_held(ref, got[0], case)
+            ranks = all(np.array_equal(got[0][k], got[1][k]) for k in got[0])
+            c_ok, c_what = _dp_held(ref, ctl, case)
+            say(f"gloo 2-rank DP step, {case}: vs one process {what} "
+                f"({'holds' if ok else 'FAILS'}); ranks bit-equal {ranks}; per-rank control: "
+                f"{c_what} ({'passes' if c_ok else 'misses the bars'})")
+            if not (ok and ranks) or (case.startswith("padded") and c_ok):
+                raise AssertionError(f"gloo DP step {case}: wrong")
+    finally:
+        torch.set_num_threads(threads)
+    full, loaded = list(DataLoader(W.CountingSeqs(), **W.LOADER)), []
+    for r, rows in enumerate(data_sharding(4, W.LOADER["batch_size"])):
+        got = np.load(os.path.join(out, f"loader_rank{r}.npz"))
+        for i, batch in enumerate(full):
+            want = (batch[0][rows],) + batch[1:]
+            if not all(np.array_equal(got[f"{k}{i}"], w) and got[f"{k}{i}"].dtype == w.dtype
+                       for k, w in zip(("x", "labels", "lengths"), want)):
+                raise AssertionError(f"rank-sharded loader, rank {r} batch {i}: wrong rows")
+        loaded += got["loaded"].tolist()
+    say(f"gloo 4-rank loader (RankRows): each rank's rows bit-equal to the one-process "
+        f"loader's; {len(loaded)} item reads over the ranks for 13 items, each read once: "
+        f"{sorted(loaded) == list(range(13))} [cluster {held['secs']:.1f} s]")
+    if sorted(loaded) != list(range(13)):
+        raise AssertionError("rank-sharded loader: an item was read twice or not at all")
+    return check_ranks(held["results"]), held["secs"]
+
+
+def phase_parallel(torch, workdir: str, smi: str) -> dict:
+    """Phase 13: multi-device runs and versioned checkpoints. The gloo
+    clusters and the NCCL dry run start first, in the background (other
+    processes), and are read last."""
+    import threading
+
+    from multimodal_deepfake_detection_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+
+    t_phase = time.perf_counter()
+    dryruns = {}
+
+    def dryrun(n, device):
+        t0 = time.perf_counter()
+        try:
+            dryruns[device] = (dryrun_multichip(n, device=device), time.perf_counter() - t0)
+        except BaseException as e:  # re-raised below, in the phase's own thread
+            dryruns[device] = (e, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=dryrun, args=(1, "cuda"))]
+    for t in threads:
+        t.start()
+    cluster = _dp_cluster(workdir)
+    steps = [("world of one", lambda: parallel_world_of_one(torch, smi)),
+             ("orbax", lambda: parallel_orbax(torch, workdir, smi)),
+             ("sharded scorers", lambda: parallel_scorers(torch, workdir, smi))]
+    launches = None
+    for label, step in steps:
+        t0 = time.perf_counter()
+        out = step()
+        launches = out if out is not None else launches
+        say(f"parallel {label} took {time.perf_counter() - t0:.1f} s")
+    fn, args = entry("cuda")
+    probs = fn(*args).float().cpu().numpy()
+    say(f"entry(): the flagship's bf16 forward on {tuple(args[1].shape)}: {probs.tolist()}")
+    if not np.isfinite(probs).all():
+        raise AssertionError("entry() forward is not finite")
+    t0 = time.perf_counter()
+    dryruns["cpu"] = parallel_dp_cluster(torch, cluster)
+    for t in threads:
+        t.join()
+    for device, (res, secs) in dryruns.items():
+        if isinstance(res, BaseException):
+            raise res
+        for line in res["lines"]:
+            say(f"dryrun_multichip({1 if device == 'cuda' else 4}, device={device!r}) "
+                f"[{secs:.1f} s]: {line}")
+    say(f"parallel gloo clusters and dry runs read after {time.perf_counter() - t0:.1f} s more")
+    say(f"phase 13 (multi-device and checkpoints) took {time.perf_counter() - t_phase:.1f} s "
+        f"[{smi}]")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4228,6 +4630,7 @@ def main() -> int:
         artifact_launches = phase_artifacts(torch, workdir, smi)
         phase_eval(torch, workdir, smi)
         phase_ingest(torch, workdir, smi)
+        mesh_launches = phase_parallel(torch, workdir, smi)
     say(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -4252,6 +4655,8 @@ def main() -> int:
         },
         # launches per backbone call on the exported program that runs it
         "artifact": {"launches": artifact_launches[name]},
+        # launches of the engines sharded over [cuda:0, cuda:0] (phase 13)
+        "mesh": {"launches": mesh_launches[name]},
     } for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

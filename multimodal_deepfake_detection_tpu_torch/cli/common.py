@@ -1,15 +1,17 @@
 """What the train and test CLIs share: the device, the host-to-device copy,
-the flags that raise, the precision context, the trainers' metric loggers
+the precision context, the trainers' metric loggers and resume snapshots,
 and the rng of a step's dropout."""
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+import os
 
-import numpy as np
 import torch
 
+from ..core.checkpoint import load_state, save_state
 from ..core.precision import ieee_fp32
+from ..parallel.distributed import process_rank
+from ..parallel.mesh import to_device as array_to_device
 
 
 def resolve_device(name: str) -> torch.device:
@@ -25,23 +27,60 @@ def to_device(batch, device: torch.device):
     ``device``; on CUDA through pinned memory, so the copy does not wait for
     the running step."""
     def put(a):
-        if isinstance(a, tuple):
-            return tuple(put(b) for b in a)
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
+        return tuple(put(b) for b in a) if isinstance(a, tuple) else array_to_device(a, device)
     return tuple(put(a) for a in batch)
 
 
-def raise_unported(config, not_ported: Dict[str, str]) -> None:
-    """Raise ``NotImplementedError`` for each field of ``not_ported`` (name ->
-    the ROADMAP item its piece waits for) that ``config`` sets away from its
-    default: nothing is ignored."""
-    defaults = type(config)()
-    for name, item in not_ported.items():
-        if getattr(config, name) != getattr(defaults, name):
-            raise NotImplementedError(f"--{name} is not ported yet: it waits for {item}")
+CKPT_BACKENDS = ("npz", "orbax")
+
+
+def check_ckpt_backend(config) -> None:
+    if config.ckpt_backend not in CKPT_BACKENDS:
+        raise ValueError(f"--ckpt_backend {config.ckpt_backend}: one of {', '.join(CKPT_BACKENDS)}")
+
+
+class ResumeState:
+    """A trainer's ``--ckpt_backend`` and ``--resume``, as the JAX trainers
+    handle them: ``npz`` snapshots ``<checkpoint_dir>/<name>_state.pt`` (a
+    ``torch.save`` file, rank 0 alone) after each epoch and ``--resume PATH``
+    loads one; ``orbax`` saves step ``epoch + 1`` into
+    ``<checkpoint_dir>/<name>_orbax`` (``core/orbax_ckpt.py``) and ``--resume
+    auto`` restores the newest step."""
+
+    def __init__(self, config, name: str):
+        check_ckpt_backend(config)
+        self.path = os.path.join(config.checkpoint_dir, f"{name}_state.pt")
+        self.orbax = None
+        if config.ckpt_backend == "orbax":
+            from ..core.orbax_ckpt import OrbaxStateManager
+
+            self.orbax = OrbaxStateManager(os.path.join(config.checkpoint_dir, f"{name}_orbax"))
+
+    def resume(self, state, resume, log) -> bool:
+        """Load ``--resume`` into ``state`` in place; whether anything loaded."""
+        if not resume:
+            return False
+        if self.orbax is not None and resume == "auto":
+            if self.orbax.restore_latest(like=state) is None:
+                return False
+            log(f"resumed from orbax step {self.orbax.latest_step()}")
+            return True
+        load_state(resume, like=state)
+        log(f"resumed train state from {resume} (step {state.step})")
+        return True
+
+    def save(self, state, epoch: int) -> None:
+        """After ``epoch`` (0-based): every rank calls it."""
+        if self.orbax is not None:
+            self.orbax.save(epoch + 1, state)
+        elif process_rank() == 0:
+            save_state(self.path, state)
+
+
+def lead_only(fn):
+    """``fn`` on rank 0 of a data-parallel run (or a lone process), a no-op
+    elsewhere: logs, bundles and metric sinks are written once."""
+    return fn if process_rank() == 0 else (lambda *a, **k: None)
 
 
 def step_generator(device: torch.device, rng_seed: int) -> torch.Generator:

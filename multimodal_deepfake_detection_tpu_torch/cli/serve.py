@@ -55,8 +55,13 @@ files) scores through exported programs (``cli/export_serving.py``,
 ``models/artifact.py``) instead of a checkpoint, one artifact per serving
 bucket, on the device type they were exported on: weights, quantization,
 routes and preprocessing are baked, so ``--quantize`` and the route flags
-raise with it and the model-width flags are unused. ``--use_mesh`` (ROADMAP
-item 11) is not ported yet and raises.
+raise with it and the model-width flags are unused.
+
+``--use_mesh true`` shards each batch over the first ``gcd(batch_size, n)``
+of the ``n`` devices of ``--device``'s type (``parallel/mesh.py``), as the
+JAX CLI's data mesh does: each device scores its block of rows on its own
+replica of the weights. On one device (or a gcd of 1) it scores unsharded,
+and says so. Not with ``--artifact``, as in JAX.
 """
 from __future__ import annotations
 
@@ -114,7 +119,8 @@ class Config:
     # serve from exported programs instead of a checkpoint: comma-separated
     # .ptprog paths and/or directories of them, one per serving bucket
     artifact: str = ""
-    use_mesh: bool = False  # not ported yet (ROADMAP item 11): raises
+    # shard each batch over the device type's devices (gcd rule)
+    use_mesh: bool = False
 
 
 def parse_config(argv=None) -> Config:
@@ -198,7 +204,7 @@ def _to_u8(arr: np.ndarray) -> np.ndarray:
     return arr if arr.dtype == np.uint8 else (np.clip(arr, 0, 1) * 255).astype(np.uint8)
 
 
-def _build_au_engine(cfg: Config):
+def _build_au_engine(cfg: Config, mesh):
     from ..core.precision import parse_dtype
     from ..models.serve import AUFaceScorer, AUPatchScorer
 
@@ -209,7 +215,7 @@ def _build_au_engine(cfg: Config):
             raise ValueError(f"--{name} is a route of the Xception engines' kernels; "
                              f"engine {cfg.engine} has none")
     common = dict(compute_dtype=parse_dtype(cfg.compute_dtype), buckets=cfg.buckets or None,
-                  quantize=cfg.quantize or None, device=cfg.device)
+                  quantize=cfg.quantize or None, device=cfg.device, mesh=mesh)
     if cfg.engine == "au_face":
         return AUFaceScorer.from_bundle(cfg.ckpt_path, lstm_hidden=cfg.lstm_hidden, **common)
     return AUPatchScorer.from_bundle(cfg.ckpt_path, hidden_dim=cfg.patch_hidden,
@@ -231,21 +237,37 @@ def _build_artifact_engine(cfg: Config):
                                 engine=cfg.engine, device=cfg.device)
 
 
-def build_engine(cfg: Config):
+def data_mesh(cfg: Config, batch_size: int, log=print):
+    """``--use_mesh``'s device list for batches of ``batch_size`` (None:
+    unsharded, logged)."""
+    from ..parallel.mesh import auto_data_mesh, local_devices
+
+    devices = local_devices(cfg.device)
+    mesh = auto_data_mesh(batch_size, devices=devices)
+    if mesh is None:
+        log(f"[serve] --use_mesh: {len(devices)} {cfg.device} device(s) and batch "
+            f"{batch_size}: scoring unsharded")
+    else:
+        log(f"[serve] --use_mesh: batches sharded over {len(mesh)} devices")
+    return mesh
+
+
+def build_engine(cfg: Config, mesh=None):
+    """The engine of ``cfg``; ``mesh``: a device list its batches shard over."""
     from ..core.precision import parse_dtype
     from ..models.serve import AudioScorer, AVScorer, VisualScorer
 
-    if cfg.use_mesh:
-        raise NotImplementedError("--use_mesh is not ported yet: it waits for ROADMAP item 11 "
-                                  "(multi-device)")
     if cfg.artifact:
+        if cfg.use_mesh:
+            raise ValueError("--use_mesh is not supported with --artifact "
+                             "(export per-shard programs instead)")
         return _build_artifact_engine(cfg)
     if cfg.engine in ("au_face", "au_patch"):
-        return _build_au_engine(cfg)
+        return _build_au_engine(cfg, mesh)
     common = dict(
         compute_dtype=parse_dtype(cfg.compute_dtype), mask_padding=cfg.mask_padding,
         quantize=cfg.quantize or None, fuse_entry=cfg.fuse_entry, entry_pair=cfg.entry_pair,
-        middle_taps=cfg.middle_taps, fuse_exit=cfg.fuse_exit, device=cfg.device,
+        middle_taps=cfg.middle_taps, fuse_exit=cfg.fuse_exit, device=cfg.device, mesh=mesh,
     )
     visual = lambda path: VisualScorer.from_bundle(
         path, hidden_dim=cfg.hidden_dim, buckets=cfg.buckets or None, **common)
@@ -325,7 +347,7 @@ def _score_chunk(engine, cfg: Config, chunk: List[str]) -> np.ndarray:
 def main(argv=None, *, log=print) -> int:
     """Score every input under ``--input``; returns the number of records written."""
     cfg = parse_config(argv)
-    engine = build_engine(cfg)
+    engine = build_engine(cfg, data_mesh(cfg, cfg.batch_size, log) if cfg.use_mesh else None)
     if cfg.engine == "av" and not cfg.audio_input:
         # up front: in the loop a missing flag would surface only on the
         # first chunk, or never on an empty input directory

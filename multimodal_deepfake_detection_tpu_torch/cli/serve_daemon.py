@@ -23,7 +23,8 @@ Score a clip from Python:
 ``--warmup T[,H,W]`` scores a zero clip of that shape once per batch bucket
 at start-up, so live traffic never pays a first call's set-up (kernel
 builds, cuDNN's algorithm search). Every flag of ``cli/serve.py``'s
-``Config`` applies (``--device``, ``--quantize``, the kernel routes);
+``Config`` applies (``--device``, ``--quantize``, the kernel routes,
+``--use_mesh``, whose data mesh is sized by ``--max_batch``);
 ``--artifact a_T8.ptprog,...`` serves from exported programs instead of a
 checkpoint (``models/artifact.py``).
 """
@@ -37,7 +38,7 @@ import numpy as np
 
 from ..core.config import parse_config
 from .serve import Config as EngineConfig
-from .serve import build_engine
+from .serve import build_engine, data_mesh
 
 
 @dataclasses.dataclass
@@ -90,7 +91,9 @@ def main(argv=None, *, log=print, started: Optional[list] = None):
     from ..serving import MicroBatcher, ServingDaemon
 
     cfg = parse_config(Config, argv, prog="serve_daemon")
-    scorer = build_engine(cfg)
+    # the engines pad a batch up to a mesh multiple, so a divisor of
+    # max_batch bounds the pad waste
+    scorer = build_engine(cfg, data_mesh(cfg, cfg.max_batch, log) if cfg.use_mesh else None)
     batcher = MicroBatcher(_adapter_for(cfg.engine, scorer), max_batch=cfg.max_batch,
                            max_wait_ms=cfg.max_wait_ms, batch_buckets=cfg.batch_buckets or None)
     daemon = ServingDaemon({cfg.engine: batcher}, host=cfg.host, port=cfg.port)

@@ -15,7 +15,10 @@ is reported with the full metric suite beside each single stream.
 It scores through the unfolded eval-BN Xceptions (no kernel of the port's
 own) on ``--device cuda`` unless asked for ``cpu``, and raises if the
 device is missing; ``--compute_dtype float32`` runs IEEE fp32 (TF32 off).
-One device: the JAX CLI's data mesh waits for ROADMAP Queue 1 item 11.
+Like the JAX CLI's data mesh, each batch is sharded over the first
+``gcd(batch_size, n)`` of the ``n`` devices of ``--device``'s type
+(``parallel/mesh.py``), each with a replica of both models, and the
+probabilities are gathered in order; one device scores unsharded.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from ..models.heads import (
     xception_lstm_head_apply,
 )
 from ..models.serve import load_visual_bundle, merge_xception_lstm
-from .common import precision, resolve_device, to_device
+from ..parallel.mesh import auto_data_mesh, local_devices, map_shards, replicas
+from .common import precision, resolve_device
 
 
 @dataclasses.dataclass
@@ -99,14 +103,18 @@ def _av_collate(items, *, video_buckets, audio_buckets, batch_size):
 
 
 class Scorer:
-    """Both eval models on one device: ``probs(videos, v_len, audios, a_len)``
+    """Both eval models: ``probs(videos, v_len, audios, a_len)``
     -> ``(p_visual, p_audio)`` fp32 device tensors; called on a host batch
-    ``((videos, audios, a_len), labels, v_len)``, the same as numpy."""
+    ``((videos, audios, a_len), labels, v_len)``, the same as numpy, its
+    rows sharded over ``mesh`` (a device list whose first device is
+    ``device``; that one alone without it)."""
 
-    def __init__(self, visual, arcface: ArcFace, audio, config: Config, device: torch.device):
+    def __init__(self, visual, arcface: ArcFace, audio, config: Config, device: torch.device,
+                 mesh=None):
         self.visual, self.arcface, self.audio = visual, arcface, audio
         self.config, self.device = config, device
         self.cdtype = parse_dtype(config.compute_dtype)
+        self.replicas = replicas(self, mesh or [device], ("visual", "arcface", "audio"))
 
     def probs(self, videos, v_len, audios, a_len):
         cfg, cd = self.config, self.cdtype
@@ -122,19 +130,26 @@ class Scorer:
     @torch.no_grad()
     def __call__(self, batch):
         (videos, audios, a_len), _labels, v_len = batch
-        videos, audios, a_len, v_len = to_device((videos, audios, a_len, v_len), self.device)
         with precision(self.cdtype):
-            p_v, p_a = self.probs(videos, v_len, audios, a_len)
-        return p_v.cpu().numpy(), p_a.cpu().numpy()
+            p_v, p_a = map_shards(self.replicas, lambda r, *blocks: r.probs(*blocks),
+                                  (videos, v_len, audios, a_len))
+        return p_v.numpy(), p_a.numpy()
 
 
-def build_scorer(config: Config) -> Scorer:
+def build_scorer(config: Config, devices=None, log=print) -> Scorer:
+    """Both bundles on ``config.device``; the batches shard over
+    ``auto_data_mesh`` of ``devices`` (by default every device of that
+    type)."""
     device = resolve_device(config.device)
     visual, arc = load_visual_bundle(config.visual_ckpt, config.visual_hidden, seed=config.seed)
     audio = merge_xception_lstm(load_bundle(config.audio_ckpt), config.audio_hidden,
                                 torch.Generator().manual_seed(config.seed))
+    mesh = auto_data_mesh(config.batch_size, devices=devices or local_devices(config.device))
+    if mesh is not None:
+        device = mesh[0]
+        log(f"sharded AV eval over {len(mesh)} devices")
     frozen = lambda m: m.to(device).eval().requires_grad_(False)  # noqa: E731
-    return Scorer(frozen(visual), frozen(arc), frozen(audio), config, device)
+    return Scorer(frozen(visual), frozen(arc), frozen(audio), config, device, mesh)
 
 
 def make_loader(config: Config, log=print) -> DataLoader:
@@ -169,7 +184,7 @@ def evaluate(score_fn, loader):
 def main(argv=None, *, log=print):
     config = parse_config(Config, argv, prog="test_av_fused")
     loader = make_loader(config, log)
-    score_fn = build_scorer(config)
+    score_fn = build_scorer(config, log=log)
     y, p_v, p_a = evaluate(score_fn, loader)
     fused = config.alpha * p_v + (1 - config.alpha) * p_a
     results = {}

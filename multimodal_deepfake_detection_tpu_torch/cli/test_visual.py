@@ -17,9 +17,11 @@ kernel of the port's own, as the JAX CLI runs no Pallas kernel) on
 ``--device cuda`` unless asked for ``cpu``, and raises if the device is
 missing. ``--compute_dtype bfloat16`` (the default) casts activations and
 weights for the convolutions and matmuls; ``float32`` runs in IEEE fp32
-with TF32 off. It scores on its one device: the JAX CLI's data mesh over
-several devices waits for ROADMAP Queue 1 item 11 (sharding moves no
-score). With ``--strict_load false`` a weight the bundle lacks keeps the
+with TF32 off. Like the JAX CLI's data mesh, each batch is sharded over the
+first ``gcd(batch_size, n)`` of the ``n`` devices of ``--device``'s type
+(``parallel/mesh.py``), each with a replica of the model, and the
+probabilities are gathered in order before the metrics; one device scores
+unsharded. With ``--strict_load false`` a weight the bundle lacks keeps the
 port's seeded init (``--seed``), not the JAX package's ``PRNGKey`` init: a
 deliberate deviation (ROADMAP Queue 3, F4), so the two CLIs agree on
 complete bundles. ``--mode fakeavceleb|lavdf|lavdf_raw`` evaluates the
@@ -43,6 +45,7 @@ from ..data.loader import DataLoader
 from ..metrics import compute_metrics_interp
 from ..models.heads import ArcFace, arcface_apply, xception_lstm_embed, xception_lstm_features
 from ..models.serve import load_visual_bundle
+from ..parallel.mesh import auto_data_mesh, local_devices, map_shards, replicas
 from .common import precision, resolve_device, to_device
 
 
@@ -79,11 +82,15 @@ class Scorer:
     """The eval model on its device. ``probs(video, lengths)`` is the fake
     probability ``(B,)`` of device tensors (differentiable in ``video``);
     calling the scorer on a host batch ``(video, labels, lengths)`` returns
-    it as numpy, without gradients."""
+    it as numpy, without gradients, its rows sharded over ``mesh`` (a
+    device list whose first device is ``device``; that one alone without
+    it)."""
 
-    def __init__(self, model, arcface: ArcFace, config: Config, device: torch.device):
+    def __init__(self, model, arcface: ArcFace, config: Config, device: torch.device,
+                 mesh=None):
         self.model, self.arcface, self.config, self.device = model, arcface, config, device
         self.cdtype = parse_dtype(config.compute_dtype)
+        self.replicas = replicas(self, mesh or [device], ("model", "arcface"))
 
     def probs(self, video: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -96,19 +103,25 @@ class Scorer:
 
     @torch.no_grad()
     def __call__(self, batch) -> np.ndarray:
-        video, _labels, lengths = to_device(batch, self.device)
+        video, _labels, lengths = batch
         with precision(self.cdtype):
-            return self.probs(video, lengths).float().cpu().numpy()
+            return map_shards(self.replicas, lambda r, v, n: r.probs(v, n).float(),
+                              (video, lengths)).numpy()
 
 
-def build_scorer(config: Config) -> Scorer:
+def build_scorer(config: Config, devices=None) -> Scorer:
     """The bundle merged onto a seeded initial tree (``strict_load``), its
-    optional ``state`` non-strictly, on ``config.device``."""
+    optional ``state`` non-strictly, on ``config.device``; its batches
+    shard over ``auto_data_mesh`` of ``devices`` (by default every device of
+    that type)."""
     device = resolve_device(config.device)
     model, arc = load_visual_bundle(config.ckpt_path, config.hidden_dim,
                                     strict=config.strict_load, seed=config.seed)
+    mesh = auto_data_mesh(config.batch_size, devices=devices or local_devices(config.device))
+    if mesh is not None:
+        device = mesh[0]
     return Scorer(model.to(device).eval().requires_grad_(False),
-                  arc.to(device).requires_grad_(False), config, device)
+                  arc.to(device).requires_grad_(False), config, device, mesh)
 
 
 def export_saliency(config: Config, loader, score_fn: Scorer, *, log=print):

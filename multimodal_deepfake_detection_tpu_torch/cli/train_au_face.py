@@ -32,10 +32,11 @@ with the same ``Config`` fields and defaults:
 
 It trains on ``--device cuda`` unless asked for ``cpu``, and raises if the
 device is missing; ``--compute_dtype float32`` runs IEEE fp32 (TF32 off).
-``--resume`` takes a ``train_au_face_state.pt`` snapshot. ``--jsonl_log``
-and ``--tracker`` log each epoch as in JAX (``utils/metric_logger.py``).
-Not ported yet, and raising when asked for: the orbax backend (ROADMAP
-Queue 1 item 11).
+``--resume`` takes a ``train_au_face_state.pt`` snapshot; ``--ckpt_backend
+orbax`` keeps versioned step directories under ``train_au_face_orbax``
+(``core/orbax_ckpt.py``) and ``--resume auto`` restores the newest.
+``--jsonl_log`` and ``--tracker`` log each epoch as in JAX
+(``utils/metric_logger.py``).
 """
 from __future__ import annotations
 
@@ -47,7 +48,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
 from ..core.precision import at_least_f32, parse_dtype
 from ..data.au_patches import get_joint_dataloader
@@ -67,9 +67,10 @@ from ..train import TrainLoop, TrainState, ema_init, make_optimizer, onecycle_sc
 from ..train.steps import SwappedParams, make_eval_step, make_train_step
 from ..utils.jax_weights import save_au_face_bundle
 from .common import (
+    ResumeState,
+    check_ckpt_backend,
     epoch_logger,
     precision,
-    raise_unported,
     resolve_device,
     step_generator,
     to_device,
@@ -125,9 +126,11 @@ class Config:
     device: str = "cuda"
 
 
-_NOT_PORTED = {
-    "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-}
+def check_config(config: Config) -> None:
+    """Raise on a flag value the CLI has no path for, never ignore it."""
+    check_ckpt_backend(config)
+    if config.face_dim != 2 * config.lstm_hidden or config.au_dim != 2 * config.lstm_hidden:
+        raise ValueError("face_dim and au_dim are the biLSTM's output width, 2 * lstm_hidden")
 
 
 class AUFaceTrainModel(nn.Module):
@@ -217,9 +220,7 @@ def make_forwards(config: Config, cdtype: torch.dtype, class_weights: torch.Tens
 def build(config: Config):
     """-> ``(train_loader, eval_loader, test_loader, state, train_step,
     eval_step)``."""
-    raise_unported(config, _NOT_PORTED)
-    if config.face_dim != 2 * config.lstm_hidden or config.au_dim != 2 * config.lstm_hidden:
-        raise ValueError("face_dim and au_dim are the biLSTM's output width, 2 * lstm_hidden")
+    check_config(config)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
     train_l, test_l, eval_l = get_joint_dataloader(
@@ -279,10 +280,8 @@ def main(argv=None, *, log=print):
 
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     best_path = os.path.join(config.checkpoint_dir, config.bundle_name)
-    resume_path = os.path.join(config.checkpoint_dir, "train_au_face_state.pt")
-    if config.resume:
-        load_state(config.resume, like=state)
-        log(f"resumed train state from {config.resume} (step {state.step})")
+    snapshots = ResumeState(config, "train_au_face")
+    snapshots.resume(state, config.resume, log)
 
     counts = np.bincount(np.asarray(train_loader.dataset.all_labels), minlength=2)
     log(f"[Info] Class counts (for CB-Focal): real={counts[0]}, fake={counts[1]}")
@@ -295,7 +294,7 @@ def main(argv=None, *, log=print):
 
     def on_epoch(state, result):
         if config.save_resume_state:
-            save_state(resume_path, state)
+            snapshots.save(state, result.epoch)
         if metric_logger is not None:
             metric_logger.log_epoch(result)
         if result.eval_scores is None or not result.eval_scores[0].size:

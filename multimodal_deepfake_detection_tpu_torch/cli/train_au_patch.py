@@ -19,9 +19,11 @@ The metric probabilities keep the reference's temperatures:
 the scorers serve ``sigmoid(logits)``. It trains on ``--device cuda``
 unless asked for ``cpu``, and raises if the device is missing;
 ``--compute_dtype float32`` runs IEEE fp32 (TF32 off). ``--resume`` takes a
-``train_au_patch_state.pt`` snapshot. ``--jsonl_log`` and ``--tracker``
-log each epoch as in JAX (``utils/metric_logger.py``). Not ported yet, and
-raising when asked for: the orbax backend (ROADMAP Queue 1 item 11).
+``train_au_patch_state.pt`` snapshot; ``--ckpt_backend orbax`` keeps
+versioned step directories under ``train_au_patch_orbax``
+(``core/orbax_ckpt.py``) and ``--resume auto`` restores the newest.
+``--jsonl_log`` and ``--tracker`` log each epoch as in JAX
+(``utils/metric_logger.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
 from ..core.precision import at_least_f32, parse_dtype
 from ..data.au_patches import get_patch_image_loaders
@@ -40,7 +41,14 @@ from ..models.resnet_lstm import AUPatchClassifier, au_patch_classifier_apply
 from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import save_au_patch_bundle
-from .common import epoch_logger, precision, raise_unported, resolve_device, to_device
+from .common import (
+    ResumeState,
+    check_ckpt_backend,
+    epoch_logger,
+    precision,
+    resolve_device,
+    to_device,
+)
 
 TRAIN_TEMP = 7.0  # the reference's metric temperature in training
 EVAL_TEMP = 2.0  # and in eval
@@ -90,9 +98,9 @@ class Config:
     device: str = "cuda"
 
 
-_NOT_PORTED = {
-    "ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)",
-}
+def check_config(config: Config) -> None:
+    """Raise on a flag value the CLI has no path for, never ignore it."""
+    check_ckpt_backend(config)
 
 
 class LoopLoader:
@@ -134,7 +142,7 @@ def make_forward(config: Config, cdtype: torch.dtype):
 def build(config: Config):
     """-> ``(train_loader, eval_loader, test_loader, state, train_step,
     eval_step)``."""
-    raise_unported(config, _NOT_PORTED)
+    check_config(config)
     device = resolve_device(config.device)
     cdtype = parse_dtype(config.compute_dtype)
     train_l, test_l, eval_l = get_patch_image_loaders(
@@ -181,10 +189,8 @@ def main(argv=None, *, log=print):
 
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     best_path = os.path.join(config.checkpoint_dir, config.bundle_name)
-    resume_path = os.path.join(config.checkpoint_dir, "train_au_patch_state.pt")
-    if config.resume:
-        load_state(config.resume, like=state)
-        log(f"resumed train state from {config.resume} (step {state.step})")
+    snapshots = ResumeState(config, "train_au_patch")
+    snapshots.resume(state, config.resume, log)
 
     def on_best(state, result):
         save_au_patch_bundle(best_path, state.model)
@@ -194,7 +200,7 @@ def main(argv=None, *, log=print):
 
     def on_epoch(state, result):
         if config.save_resume_state:
-            save_state(resume_path, state)
+            snapshots.save(state, result.epoch)
         if metric_logger is not None:
             metric_logger.log_epoch(result)
 

@@ -25,8 +25,14 @@ the backward. ``--resume`` takes a ``train_audio_state.pt`` snapshot.
 ``--native_loader true`` assembles the batches in the C++ npy collate
 (``data/native_loader.py``, built from ``native/npy_collate.cc``), bit-equal
 to the Python loader's. ``--jsonl_log`` and ``--tracker`` log each epoch as
-in JAX (``utils/metric_logger.py``). Not ported yet, and raising when asked
-for: the orbax backend (ROADMAP Queue 1 item 11).
+in JAX (``utils/metric_logger.py``). ``--ckpt_backend orbax`` keeps
+versioned step directories under ``train_audio_orbax`` (``core/orbax_ckpt.py``)
+and ``--resume auto`` restores the newest.
+
+Under ``torchrun --nproc_per_node W`` it trains data-parallel, as
+``cli/train_visual.py`` does (W must divide ``--batch_size``). Each rank
+draws its rows' dropout masks from a generator seeded by the step and the
+rank, so the masks are not the single-process run's.
 """
 from __future__ import annotations
 
@@ -37,21 +43,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.checkpoint import load_state, save_state
 from ..core.config import parse_config
 from ..core.precision import parse_dtype
 from ..data.datasets import NpyFolderDataset
 from ..data.loader import DataLoader
 from ..models.heads import XceptionLSTM, xception_lstm_features, xception_lstm_head_apply
 from ..models.losses import bce_loss
+from ..parallel.distributed import data_parallel_run
 from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.feature_cache import FeatureCachingLoader
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import save_audio_bundle
 from .common import (
+    ResumeState,
+    check_ckpt_backend,
     epoch_logger,
+    lead_only,
     precision,
-    raise_unported,
     resolve_device,
     step_generator,
     to_device,
@@ -92,13 +100,12 @@ class Config:
     device: str = "cuda"
 
 
-_NOT_PORTED = {"ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)"}
 BUNDLE_NAME = "best_model_audio.npz"
 
 
 def check_config(config: Config) -> None:
-    """Raise on a flag whose piece is not ported, never ignore it."""
-    raise_unported(config, _NOT_PORTED)
+    """Raise on a flag value the CLI has no path for, never ignore it."""
+    check_ckpt_backend(config)
     if config.cache_features and not config.freeze_backbone:
         raise ValueError("--cache_features requires --freeze_backbone (the cached "
                          "features are only invariant for a frozen backbone)")
@@ -131,7 +138,7 @@ def make_forward(config: Config, cdtype: torch.dtype, bb_eval: bool):
 def build(config: Config, train_ds=None, eval_ds=None):
     """-> ``(train_loader, eval_loader, state, train_step, eval_step)``."""
     check_config(config)
-    device = resolve_device(config.device)
+    device, dp = data_parallel_run(resolve_device(config.device), config.batch_size)
     cdtype = parse_dtype(config.compute_dtype)
 
     train_ds = train_ds or NpyFolderDataset(config.train_folder, kind="audio")
@@ -146,6 +153,8 @@ def build(config: Config, train_ds=None, eval_ds=None):
         train_loader = DataLoader(train_ds, config.batch_size, shuffle=False, seed=config.seed,
                                   buckets=config.buckets)
         eval_loader = DataLoader(eval_ds, config.batch_size, buckets=config.buckets)
+    if dp is not None:  # this rank's rows of every batch
+        train_loader, eval_loader = dp.loader(train_loader), dp.loader(eval_loader)
 
     model = XceptionLSTM(config.hidden_dim,
                          generator=torch.Generator().manual_seed(config.seed)).to(device)
@@ -168,24 +177,30 @@ def build(config: Config, train_ds=None, eval_ds=None):
 
     forward = make_forward(config, cdtype, bb_eval)
 
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+
     def train_forward(model, rng_seed, batch):
-        loss, bn_stats, probs = forward(model, batch, True, step_generator(device, rng_seed))
+        g = step_generator(device, rng_seed * world + rank)
+        loss, bn_stats, probs = forward(model, batch, True, g)
         return loss, (bn_stats, probs)
 
     def eval_forward(model, batch):
         loss, _, probs = forward(model, batch, False)
         return loss, probs
 
-    raw_train_step, raw_eval_step = make_train_step(train_forward), make_eval_step(eval_forward)
+    group = dp.group if dp is not None else None
+    raw_train_step = make_train_step(train_forward, data_group=group)
+    raw_eval_step = make_eval_step(eval_forward, data_group=group)
     frozen = ("backbone",) if config.freeze_backbone else ()
+    local = dp.batch if dp is not None else (lambda batch: batch)
 
     def train_step(state, batch, rng_seed, epoch):
         with precision(cdtype):
-            return raw_train_step(state, to_device(batch, device), rng_seed, frozen)
+            return raw_train_step(state, to_device(local(batch), device), rng_seed, frozen)
 
     def eval_step(state, batch):
         with precision(cdtype):
-            return raw_eval_step(state, to_device(batch, device))
+            return raw_eval_step(state, to_device(local(batch), device))
 
     return train_loader, eval_loader, state, train_step, eval_step
 
@@ -194,25 +209,24 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
     config = parse_config(Config, argv, prog="train_audio")
     train_loader, eval_loader, state, train_step, eval_step = build(config, train_ds, eval_ds)
 
+    log = lead_only(log)
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     best_path = os.path.join(config.checkpoint_dir, BUNDLE_NAME)
-    resume_path = os.path.join(config.checkpoint_dir, "train_audio_state.pt")
-    if config.resume:
-        load_state(config.resume, like=state)
-        log(f"resumed train state from {config.resume} (step {state.step})")
-        if config.cache_features:
-            # cache features with the resumed (frozen) backbone, not the init one
-            train_loader.feat_src.load_state_dict(state.model.state_dict())
+    snapshots = ResumeState(config, "train_audio")
+    if snapshots.resume(state, config.resume, log) and config.cache_features:
+        # cache features with the resumed (frozen) backbone, not the init one
+        train_loader.feat_src.load_state_dict(state.model.state_dict())
 
+    @lead_only
     def on_best(state, result):
         save_audio_bundle(best_path, state.model)
         log(f"new best model saved -> {best_path}")
 
-    metric_logger = epoch_logger(config, "train_audio")
+    metric_logger = lead_only(epoch_logger)(config, "train_audio")
 
     def on_epoch(state, result):
         if config.save_resume_state:
-            save_state(resume_path, state)
+            snapshots.save(state, result.epoch)
         if metric_logger is not None:
             metric_logger.log_epoch(result)
 

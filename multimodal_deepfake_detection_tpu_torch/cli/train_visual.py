@@ -37,10 +37,19 @@ resized to ``--frame_size``, optionally face-cropped with
 mode; the batches do not change).
 
 ``--jsonl_log`` writes one JSON object per epoch and ``--tracker`` adds
-TensorBoard or wandb sinks (``utils/metric_logger.py``), as in JAX. Not
-ported yet, and raising when asked for: the orbax backend (ROADMAP Queue 1
-item 11). The train-state snapshot for ``--resume`` is a ``torch.save``
-file, ``train_visual_state.pt``.
+TensorBoard or wandb sinks (``utils/metric_logger.py``), as in JAX. The
+train-state snapshot for ``--resume`` is a ``torch.save`` file,
+``train_visual_state.pt``; ``--ckpt_backend orbax`` keeps versioned step
+directories under ``train_visual_orbax`` instead (``core/orbax_ckpt.py``),
+and ``--resume auto`` restores the newest.
+
+Under ``torchrun --nproc_per_node W`` it trains data-parallel, one process
+per device, as the JAX CLI shards each batch over its devices: every rank
+reads the same batches and computes its contiguous block of rows (W must
+divide ``--batch_size``), BN statistics and the loss are the global batch's
+and the gradients are all-reduced before the clip (``train/steps.py``), so
+a step is the single-device step on the global batch; rank 0 alone logs
+and writes the bundle and the snapshots.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.checkpoint import load_state, save_bundle, save_state
+from ..core.checkpoint import save_bundle
 from ..core.config import parse_config
 from ..core.precision import parse_dtype
 from ..data.datasets import NpyFolderDataset
@@ -64,11 +73,20 @@ from ..models.heads import (
     xception_lstm_features,
 )
 from ..models.losses import cross_entropy_loss
+from ..parallel.distributed import data_parallel_run
 from ..train import PlateauScheduler, TrainLoop, TrainState, make_optimizer
 from ..train.feature_cache import PhaseSwitchLoader, _EpochCounter
 from ..train.steps import make_eval_step, make_train_step
 from ..utils.jax_weights import arcface_to_jax, xception_lstm_to_jax
-from .common import epoch_logger, precision, raise_unported, resolve_device, to_device
+from .common import (
+    ResumeState,
+    check_ckpt_backend,
+    epoch_logger,
+    lead_only,
+    precision,
+    resolve_device,
+    to_device,
+)
 
 
 @dataclasses.dataclass
@@ -125,16 +143,14 @@ class Config:
     device: str = "cuda"
 
 
-# fields whose piece of the JAX package is not ported yet: (the item it waits for)
-_NOT_PORTED = {"ckpt_backend": "the orbax backend (ROADMAP Queue 1 item 11)"}
 MODES = ("npy", "fakeavceleb", "lavdf", "lavdf_raw")
 
 
 def check_config(config: Config) -> None:
-    """Raise on a flag whose piece is not ported, never ignore it."""
+    """Raise on a flag value the CLI has no path for, never ignore it."""
     if config.mode not in MODES:
         raise ValueError(f"--mode {config.mode}: one of {', '.join(MODES)}")
-    raise_unported(config, _NOT_PORTED)
+    check_ckpt_backend(config)
     if config.cache_features:
         if config.freeze_epochs <= 0:
             raise ValueError("--cache_features requires freeze_epochs > 0 (it caches "
@@ -209,10 +225,12 @@ def make_loaders(config: Config, train_ds=None, eval_ds=None):
 def build(config: Config, train_ds=None, eval_ds=None):
     """-> ``(train_loader, eval_loader, state, train_step, eval_step)``."""
     check_config(config)
-    device = resolve_device(config.device)
+    device, dp = data_parallel_run(resolve_device(config.device), config.batch_size)
     cdtype = parse_dtype(config.compute_dtype)
 
     train_loader, eval_loader = make_loaders(config, train_ds, eval_ds)
+    if dp is not None:  # this rank's rows of every batch
+        train_loader, eval_loader = dp.loader(train_loader), dp.loader(eval_loader)
 
     model = XceptionLSTMArcFace(
         config.hidden_dim, generator=torch.Generator().manual_seed(config.seed)).to(device)
@@ -247,25 +265,28 @@ def build(config: Config, train_ds=None, eval_ds=None):
             return loss, (bn_stats, probs)
         return fwd
 
-    raw_train_step = make_train_step(train_forward(False))
-    raw_train_step_bneval = make_train_step(train_forward(True)) if backbone_bn_eval else None
+    group = dp.group if dp is not None else None
+    raw_train_step = make_train_step(train_forward(False), data_group=group)
+    raw_train_step_bneval = (make_train_step(train_forward(True), data_group=group)
+                             if backbone_bn_eval else None)
 
     def eval_forward(model, batch):
         loss, _, probs = _forward(model, batch, False)
         return loss, probs
 
-    raw_eval_step = make_eval_step(eval_forward)
+    raw_eval_step = make_eval_step(eval_forward, data_group=group)
+    local = dp.batch if dp is not None else (lambda batch: batch)
 
     def train_step(state, batch, rng_seed, epoch):
         frozen_now = epoch < config.freeze_epochs
         step = raw_train_step_bneval if (frozen_now and backbone_bn_eval) else raw_train_step
         with precision(cdtype):
-            return step(state, to_device(batch, device), rng_seed,
+            return step(state, to_device(local(batch), device), rng_seed,
                         ("backbone",) if frozen_now else ())
 
     def eval_step(state, batch):
         with precision(cdtype):
-            return raw_eval_step(state, to_device(batch, device))
+            return raw_eval_step(state, to_device(local(batch), device))
 
     return train_loader, eval_loader, state, train_step, eval_step
 
@@ -274,29 +295,27 @@ def main(argv=None, *, train_ds=None, eval_ds=None, log=print):
     config = parse_config(Config, argv, prog="train_visual")
     train_loader, eval_loader, state, train_step, eval_step = build(config, train_ds, eval_ds)
 
+    log = lead_only(log)
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     best_path = os.path.join(config.checkpoint_dir, config.bundle_name)
-    resume_path = os.path.join(config.checkpoint_dir, "train_visual_state.pt")
-
-    if config.resume:
-        load_state(config.resume, like=state)
-        log(f"resumed train state from {config.resume} (step {state.step})")
-        if config.cache_features:
-            # cache features with the resumed (frozen) backbone, not the init one
-            train_loader.feat_src.load_state_dict(state.model.state_dict())
+    snapshots = ResumeState(config, "train_visual")
+    if snapshots.resume(state, config.resume, log) and config.cache_features:
+        # cache features with the resumed (frozen) backbone, not the init one
+        train_loader.feat_src.load_state_dict(state.model.state_dict())
 
     counts = np.bincount(np.asarray(train_loader.dataset.all_labels), minlength=2)
     log(f"class counts: real={counts[0]} fake={counts[1]}")
 
+    @lead_only
     def on_best(state, result):
         save_visual_bundle(best_path, state.model)
         log(f"new best model saved -> {best_path}")
 
-    metric_logger = epoch_logger(config, "train_visual")
+    metric_logger = lead_only(epoch_logger)(config, "train_visual")
 
     def on_epoch(state, result):
         if config.save_resume_state:
-            save_state(resume_path, state)
+            snapshots.save(state, result.epoch)
         if metric_logger is not None:
             metric_logger.log_epoch(result)
 

@@ -78,8 +78,16 @@ class DataLoader:
         self.prefetch = prefetch
         self.item_workers = int(item_workers)
         self._pool = None  # made at the first threaded batch, kept across epochs
+        self.rows: Optional[Callable[[int], slice]] = None  # set by shard_rows()
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+
+    def shard_rows(self, rows: Callable[[int], slice]) -> None:
+        """Load and collate only the items at positions ``rows(batch_size)``
+        of each (padded) batch: a data-parallel rank's block
+        (``parallel/distributed.py::RankRows``). A batch whose block holds
+        pad rows only is then None."""
+        self.rows = rows
 
     def _load_items(self, chunk: np.ndarray) -> list:
         if self.item_workers <= 0 or len(chunk) <= 1:
@@ -112,7 +120,9 @@ class DataLoader:
             chunk = idx[start : start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            yield self.collate(self._load_items(chunk))
+            if self.rows is not None:
+                chunk = chunk[self.rows(self.batch_size)]
+            yield self.collate(self._load_items(chunk)) if len(chunk) else None
 
     def __iter__(self) -> Iterator:
         if self.prefetch <= 0:

@@ -7,7 +7,11 @@ weights, the class-balanced focal loss and its weights, the logit clamp, the
 cross-modal alignment MSE, temporal smoothness and the adaptive mixer.
 
 All reductions are means (or weighted means when ``sample_weight`` masks
-batch-padding rows); everything is at least fp32 inside.
+batch-padding rows); everything is at least fp32 inside. Inside
+``parallel.distributed.data_parallel(group)`` the BCE, focal and
+cross-entropy means are the global batch's: each rank returns its rows'
+weighted sum over the global weight (a SUM all-reduce), its share of the
+global loss, so the shares' gradients add up to the global loss's.
 """
 from __future__ import annotations
 
@@ -17,10 +21,16 @@ import torch
 import torch.nn.functional as F
 
 from ..core.precision import at_least_f32
+from ..parallel.distributed import data_group, global_sum
 
 
 def _wmean(values: torch.Tensor, sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean, or weighted mean when ``sample_weight`` is given."""
+    """Mean, or weighted mean when ``sample_weight`` is given (this rank's
+    share of the global one under ``data_parallel``)."""
+    if data_group() is not None:
+        w = (torch.ones_like(values) if sample_weight is None
+             else at_least_f32(sample_weight).reshape(values.shape))
+        return (w * values).sum() / global_sum(w.sum()).clamp_min(1e-12)
     if sample_weight is None:
         return values.mean()
     w = at_least_f32(sample_weight).reshape(values.shape)
@@ -102,7 +112,7 @@ def cross_entropy_loss(
         w = w * at_least_f32(class_weights)[labels.long()]
     if sample_weight is not None:
         w = w * at_least_f32(sample_weight).reshape(w.shape)
-    return (w * nll).sum() / w.sum().clamp_min(1e-12)
+    return (w * nll).sum() / global_sum(w.sum()).clamp_min(1e-12)
 
 
 def cb_focal_class_weights(samples_per_cls: Sequence[int], beta: float = 0.9999) -> torch.Tensor:

@@ -31,12 +31,22 @@ w8a8 tree (``models/quant.py``).
   Pallas kernels there either.
 
 Clips are padded (or cut) to a length bucket as the JAX engines do, so the
-scores match them; the JAX meshes and jit cache are not ported here. Each
-engine's ``score()`` prepares its inputs on the host (numpy: buckets,
-padding, default lengths) and calls its ``_score_impl`` on device tensors,
-the counterpart of the JAX ``_score_impl``: the function
-``models/export.py`` exports, so an artifact replays the live path's own
-ops.
+scores match them; the JAX jit cache has no counterpart. Each engine's
+``score()`` prepares its inputs on the host (numpy: buckets, padding,
+default lengths) and calls its ``_score_impl`` on device tensors, the
+counterpart of the JAX ``_score_impl``: the function ``models/export.py``
+exports, so an artifact replays the live path's own ops.
+
+``mesh=`` (a list of devices, ``parallel/mesh.py``) shards each engine's
+batches, as the JAX engines' data mesh does: every device holds a replica
+of the weights (the fold, the quantized tree once calibrated, the heads),
+the batch is padded with ``lengths == 0`` rows to a multiple of the mesh
+size and split into contiguous blocks, every block is enqueued on its
+device before any result is read, and the scores come back in order with
+the pad rows dropped. ``device`` is then the mesh's first device, where
+``calibrate`` runs once for all replicas. Without ``mesh`` the engine is
+the one replica of its ``device`` and scores each batch as one block
+(``parallel/mesh.py::map_shards``).
 
 The quantization modes are the JAX engines': ``"w8a8"`` (every conv and
 depthwise int8), ``"w8a8-hybrid"`` (int8 entry and exit, the fp middle flow
@@ -66,6 +76,7 @@ from ..data.collate import bucket_length
 from ..ops.lstm import lstm_apply, select_last_step
 from ..ops.mfcc import mfcc, mfcc_constants
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import map_shards, replicas, to_device
 from ..utils.jax_weights import (
     arcface_from_jax,
     arcface_to_jax,
@@ -155,14 +166,47 @@ def mfcc_images(feats: torch.Tensor) -> torch.Tensor:
     return resize_bilinear(imgs, AUDIO_IMAGE).contiguous()
 
 
-class _XceptionScorer:
+def _to_device(a, device) -> Optional[torch.Tensor]:
+    return None if a is None else to_device(a, device)
+
+
+class _ShardedScoringMixin:
+    """Batch scoring over a device list (``mesh``; one device without it),
+    shared by the engines.
+
+    ``_replica_attrs`` names the device-bound attributes each further device
+    gets a copy of; the engine itself serves the first device. The replicas
+    are built at the first call after construction or calibration, so all
+    share one calibrated tree."""
+
+    _replica_attrs: Tuple[str, ...] = ()
+
+    def _init_mesh(self, mesh, device) -> torch.device:
+        """-> the engine's primary device: the mesh's first, else ``device``."""
+        self.mesh = [torch.device(d) for d in (mesh or [device])]
+        self._replica_cache = None
+        return self.mesh[0]
+
+    def _replicas(self) -> list:
+        if self._replica_cache is None:
+            self._replica_cache = replicas(self, self.mesh, self._replica_attrs)
+        return self._replica_cache
+
+    def _score_rows(self, arrays: tuple, *static) -> np.ndarray:
+        """``_score_impl`` over host ``arrays`` (batch on axis 0; None passes
+        through) and the ``static`` arguments -> fp32 probabilities ``(B,)``."""
+        return map_shards(self._replicas(), lambda r, *blocks: r._score_impl(*blocks, *static),
+                          arrays).numpy()
+
+
+class _XceptionScorer(_ShardedScoringMixin):
     """The backbone both engines serve: the fp fold in the compute dtype with
     its kernel routes, or a quant mode's w8a8 tree, calibrated (and refined)
     from the fp32 fold."""
 
     def __init__(self, backbone: Xception, *, compute_dtype: torch.dtype,
                  use_kernels: Optional[bool], quantize: Optional[str], fuse_entry: bool,
-                 entry_pair: bool, middle_taps: str, fuse_exit: bool, device):
+                 entry_pair: bool, middle_taps: str, fuse_exit: bool, device, mesh=None):
         """``use_kernels=None`` runs the middle flow through the K1 kernel
         (K2 under ``quantize="w8a8-pallas"``) and the int8 depthwise through
         its kernel exactly when ``device`` is CUDA; ``False`` runs the plain
@@ -184,7 +228,7 @@ class _XceptionScorer:
             if on and quantize:
                 raise ValueError(f"{name} is a route of the fp path's kernels; "
                                  f"quantize={quantize!r} has no such route")
-        self.device = torch.device(device)
+        self.device = self._init_mesh(mesh, device)
         self.compute_dtype = compute_dtype
         self.use_kernels = self.device.type == "cuda" if use_kernels is None else use_kernels
         self.quantize = quantize
@@ -222,6 +266,7 @@ class _XceptionScorer:
                 qtree = refine_quantized_xception(qtree, self.fp_tree, x, passes=refine_passes,
                                                   compute_dtype=torch.float32)
         self.qbackbone = qtree
+        self._replica_cache = None
 
     def _backbone_features(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> per-image features ``(N, 2048)`` in the compute dtype."""
@@ -237,6 +282,8 @@ class _XceptionScorer:
 
 class VisualScorer(_XceptionScorer):
     """XceptionLSTMV + ArcFace scoring on raw uint8 frame stacks."""
+
+    _replica_attrs = ("folded_backbone", "qbackbone", "lstm", "arcface_w")
 
     @classmethod
     def from_bundle(cls, path: str, hidden_dim: int = 128, **kw) -> "VisualScorer":
@@ -260,12 +307,14 @@ class VisualScorer(_XceptionScorer):
         middle_taps: str = "fp32",
         fuse_exit: bool = False,
         device="cuda",
+        mesh=None,
     ):
         """Backbone options: :class:`_XceptionScorer`. ``buckets``: T pads up
-        to a bucket, as in the JAX engine."""
+        to a bucket, as in the JAX engine. ``mesh``: a device list the
+        batches shard over (module docstring)."""
         super().__init__(model.backbone, compute_dtype=compute_dtype, use_kernels=use_kernels,
                          quantize=quantize, fuse_entry=fuse_entry, entry_pair=entry_pair,
-                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device)
+                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device, mesh=mesh)
         self.lstm = copy.deepcopy(model.lstm).to(self.device)
         self.arcface_w = arcface.w.detach().to(self.device, torch.float32)
         self.arcface_s = arcface_s
@@ -335,13 +384,13 @@ class VisualScorer(_XceptionScorer):
             elif Tb < T:  # longer than the largest bucket: truncate
                 frames_u8 = frames_u8[:, :Tb]
                 lengths = np.minimum(lengths, Tb)
-        u8 = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
-        lengths_t = torch.as_tensor(np.asarray(lengths), device=self.device)
-        return self._score_impl(u8, lengths_t).cpu().numpy()
+        return self._score_rows((frames_u8, np.asarray(lengths)))
 
 
 class AudioScorer(_XceptionScorer):
     """XceptionLSTMA scoring straight from raw 16 kHz waveforms."""
+
+    _replica_attrs = ("folded_backbone", "qbackbone", "head", "mfcc_constants")
 
     @classmethod
     def from_bundle(cls, path: str, hidden_dim: int = 512, **kw) -> "AudioScorer":
@@ -366,15 +415,17 @@ class AudioScorer(_XceptionScorer):
         middle_taps: str = "fp32",
         fuse_exit: bool = False,
         device="cuda",
+        mesh=None,
     ):
-        """Backbone options: :class:`_XceptionScorer`. ``sample_buckets``:
+        """Backbone options: :class:`_XceptionScorer`; ``mesh``: as
+        :class:`VisualScorer`'s. ``sample_buckets``:
         the sample axis pads up to a bucket. The true signal is then
         reflect-centred on the host and framed uncentred on the device, so
         every frame of the true length is the one the unbucketed engine
         computes, and the frames past it are masked."""
         super().__init__(model.backbone, compute_dtype=compute_dtype, use_kernels=use_kernels,
                          quantize=quantize, fuse_entry=fuse_entry, entry_pair=entry_pair,
-                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device)
+                         middle_taps=middle_taps, fuse_exit=fuse_exit, device=device, mesh=mesh)
         self.head = copy.deepcopy(nn.ModuleDict(dict(
             lstm=model.lstm, fc_layers=model.fc_layers, fc_out=model.fc_out))).to(self.device)
         self.mfcc_kw = dict(sr=sr, n_mfcc=n_mfcc, n_fft=n_fft, hop_length=hop_length)
@@ -475,10 +526,8 @@ class AudioScorer(_XceptionScorer):
             self.calibrate(waveforms)  # implicit first-batch calibration
         waveforms, frame_lengths, centered = self._prepare(waveforms, frame_lengths,
                                                            sample_lengths)
-        w = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
-        lengths = (None if frame_lengths is None else
-                   torch.as_tensor(np.asarray(frame_lengths), device=self.device))
-        return self._score_impl(w, lengths, centered).cpu().numpy()
+        lengths = None if frame_lengths is None else np.asarray(frame_lengths)
+        return self._score_rows((np.asarray(waveforms, np.float32), lengths), centered)
 
     def _score_impl(self, waveforms: torch.Tensor, frame_lengths: Optional[torch.Tensor],
                     centered: bool) -> torch.Tensor:
@@ -605,18 +654,21 @@ def _pad_time(arr: np.ndarray, Tb: int) -> np.ndarray:
     return np.concatenate([arr, pad], axis=1)
 
 
-class _ResNetScorer:
+class _ResNetScorer(_ShardedScoringMixin):
     """The ResNet-18 streams of an AU engine: the model's own eval-BN
     backbones, or with ``quantize="w8a8"`` their int8 trees, calibrated (and
     refined) from the fp32 fold."""
 
+    _replica_attrs = ("model", "qbackbones")
+
     def __init__(self, model: nn.Module, sizes: dict, *, compute_dtype: torch.dtype,
-                 quantize: Optional[str], device):
+                 quantize: Optional[str], device, mesh=None):
         """``sizes``: each stream's backbone attribute of ``model`` -> the
-        image size its inputs are resized to (None: as given)."""
+        image size its inputs are resized to (None: as given). ``mesh``: as
+        :class:`VisualScorer`'s."""
         if quantize not in AU_QUANT_MODES:
             raise ValueError(f"quantize must be None or 'w8a8', got {quantize!r}")
-        self.device = torch.device(device)
+        self.device = self._init_mesh(mesh, device)
         self.compute_dtype = compute_dtype
         self.quantize = quantize
         self.model = copy.deepcopy(model).to(self.device)
@@ -645,6 +697,7 @@ class _ResNetScorer:
                                                         passes=refine_passes,
                                                         compute_dtype=torch.float32)
         self.qbackbones = qb
+        self._replica_cache = None
 
     def _features(self, key: str, flat: torch.Tensor) -> torch.Tensor:
         if self.qbackbones is not None:
@@ -690,13 +743,15 @@ class AUFaceScorer(_ResNetScorer):
         buckets: Optional[Sequence[int]] = None,
         quantize: Optional[str] = None,
         device="cuda",
+        mesh=None,
     ):
         """``buckets``: both time axes pad up to a bucket, and their true
         lengths gate the biLSTMs, the cross-attention keys and the pools, so
         the scores equal the unbucketed ones. ``quantize``: None or
-        ``"w8a8"``."""
+        ``"w8a8"``. ``mesh``: as :class:`VisualScorer`'s."""
         super().__init__(model, {"face_backbone": frame_size, "au_backbone": patch_size},
-                         compute_dtype=compute_dtype, quantize=quantize, device=device)
+                         compute_dtype=compute_dtype, quantize=quantize, device=device,
+                         mesh=mesh)
         self.buckets = tuple(sorted(buckets)) if buckets else None
 
     @_ieee_fp32
@@ -712,9 +767,9 @@ class AUFaceScorer(_ResNetScorer):
                   "au_backbone": self._flat("au_backbone", np.asarray(au_patches_u8))}
         self._calibrate_on(xs, refine_passes)
 
-    def _inputs(self, videos_u8, au_patches_u8, au_mask, au_weight) -> tuple:
-        """The host side: the bucketed inputs as device tensors and both
-        valid lengths, ``(videos, patches, mask, weight, T, Ta)``."""
+    def _host_inputs(self, videos_u8, au_patches_u8, au_mask, au_weight) -> tuple:
+        """The host side: the bucketed inputs as numpy arrays and both valid
+        lengths, ``((videos, patches, mask, weight), T, Ta)``."""
         if self.quantize is not None and self.qbackbones is None:
             self.calibrate(videos_u8, au_patches_u8)  # implicit first-batch calibration
         B, T = videos_u8.shape[:2]
@@ -728,9 +783,14 @@ class AUFaceScorer(_ResNetScorer):
             videos_u8, au_patches_u8 = _pad_time(videos_u8, Tb), _pad_time(au_patches_u8, Tab)
             au_mask, au_weight = _pad_time(au_mask, Tab), _pad_time(au_weight, Tab)
             T, Ta = min(T, Tb), min(Ta, Tab)
-        tensor = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-        u8 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        return u8(videos_u8), u8(au_patches_u8), tensor(au_mask), tensor(au_weight), T, Ta
+        f32 = lambda a: np.asarray(a, np.float32)
+        return (videos_u8, au_patches_u8, f32(au_mask), f32(au_weight)), T, Ta
+
+    def _inputs(self, videos_u8, au_patches_u8, au_mask, au_weight) -> tuple:
+        """:meth:`_host_inputs` as tensors on the device, ``(videos, patches,
+        mask, weight, T, Ta)``."""
+        arrays, T, Ta = self._host_inputs(videos_u8, au_patches_u8, au_mask, au_weight)
+        return tuple(_to_device(a, self.device) for a in arrays) + (T, Ta)
 
     def _apply(self, videos_u8, au_patches_u8, au_mask, au_weight, v_valid: int, au_valid: int):
         """The detector on device tensors -> ``(logits, v_tokens, au_tokens)``."""
@@ -759,8 +819,8 @@ class AUFaceScorer(_ResNetScorer):
         """``videos_u8 (B, T, H, W, 3)`` and ``au_patches_u8 (B, Ta, A, h, w, 3)``
         uint8, ``au_mask`` / ``au_weight (B, Ta, A)`` (ones by default) -> fake
         probabilities ``(B,)``."""
-        inputs = self._inputs(videos_u8, au_patches_u8, au_mask, au_weight)
-        return self._score_impl(*inputs).cpu().numpy()
+        arrays, T, Ta = self._host_inputs(videos_u8, au_patches_u8, au_mask, au_weight)
+        return self._score_rows(arrays, T, Ta)
 
     @_ieee_fp32
     @torch.inference_mode()
@@ -798,12 +858,13 @@ class AUPatchScorer(_ResNetScorer):
         buckets: Optional[Sequence[int]] = None,
         quantize: Optional[str] = None,
         device="cuda",
+        mesh=None,
     ):
         """``buckets``: the time axis pads up to a bucket, ``lengths`` gates
         the biLSTM, so the scores equal the unbucketed ones. ``quantize``:
-        None or ``"w8a8"``."""
+        None or ``"w8a8"``. ``mesh``: as :class:`VisualScorer`'s."""
         super().__init__(model, {"backbone": patch_size}, compute_dtype=compute_dtype,
-                         quantize=quantize, device=device)
+                         quantize=quantize, device=device, mesh=mesh)
         self.mask_padding = mask_padding
         self.buckets = tuple(sorted(buckets)) if buckets else None
 
@@ -817,8 +878,8 @@ class AUPatchScorer(_ResNetScorer):
             x = self._flat("backbone", np.asarray(patches_u8))
         self._calibrate_on({"backbone": x}, refine_passes)
 
-    def _inputs(self, patches_u8, au_weights, lengths) -> tuple:
-        """The host side: the bucketed inputs as device tensors ``(patches,
+    def _host_inputs(self, patches_u8, au_weights, lengths) -> tuple:
+        """The host side: the bucketed inputs as numpy arrays ``(patches,
         weights, lengths)``."""
         if self.quantize is not None and self.qbackbones is None:
             self.calibrate(patches_u8)  # implicit first-batch calibration
@@ -831,9 +892,12 @@ class AUPatchScorer(_ResNetScorer):
             Tb = bucket_length(T, self.buckets)
             patches_u8, au_weights = _pad_time(patches_u8, Tb), _pad_time(au_weights, Tb)
             lengths = np.minimum(lengths, Tb)
-        return (torch.from_numpy(np.ascontiguousarray(patches_u8)).to(self.device),
-                torch.as_tensor(np.asarray(au_weights, np.float32), device=self.device),
-                torch.as_tensor(np.asarray(lengths), device=self.device))
+        return patches_u8, np.asarray(au_weights, np.float32), np.asarray(lengths)
+
+    def _inputs(self, patches_u8, au_weights, lengths) -> tuple:
+        """:meth:`_host_inputs` as tensors on the device."""
+        return tuple(_to_device(a, self.device)
+                     for a in self._host_inputs(patches_u8, au_weights, lengths))
 
     def _apply(self, patches_u8, au_weights, lengths, return_pooled: bool):
         return au_patch_classifier_apply(
@@ -857,7 +921,7 @@ class AUPatchScorer(_ResNetScorer):
         """``patches_u8 (B, T, A, h, w, 3)`` uint8, ``au_weights (B, T, A)``
         (ones by default), ``lengths (B,)`` (T by default) -> fake
         probabilities ``(B,)``."""
-        return self._score_impl(*self._inputs(patches_u8, au_weights, lengths)).cpu().numpy()
+        return self._score_rows(self._host_inputs(patches_u8, au_weights, lengths))
 
     @_ieee_fp32
     @torch.inference_mode()

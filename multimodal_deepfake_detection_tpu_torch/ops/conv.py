@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import at_least_f32
+from ..parallel.distributed import all_reduce_sum, data_group
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -78,21 +79,33 @@ def batch_norm_train(x, scale, bias, eps: float = 1e-5):
     ``(out, mean, unbiased_var)``.
 
     The JAX default (``_bn_train_core``): fp32 statistics with the single-pass
-    variance ``max(E[x^2] - E[x]^2, 0)``, normalisation by that biased
-    variance, the output cast back to ``x.dtype``. Gradients come from
-    autograd through this formula. ``mean`` and the unbiased variance
-    (``var * n / (n - 1)``) come back detached, for the running statistics:
-    they are no-grad buffer writes, applied by :meth:`BatchNorm.update`.
-    ``F.batch_norm(training=True)`` is not used: its variance is two-pass and
-    it normalises bf16 inputs differently."""
+    variance ``max(E[x^2] - E[x]^2, 0)`` (each mean a sum over the count, as
+    ``jnp.mean``), normalisation by that biased variance, the output cast
+    back to ``x.dtype``. Gradients come from autograd through this formula.
+    ``mean`` and the unbiased variance (``var * n / (n - 1)``) come back
+    detached, for the running statistics: they are no-grad buffer writes,
+    applied by :meth:`BatchNorm.update`. ``F.batch_norm(training=True)`` is
+    not used: its variance is two-pass and it normalises bf16 inputs
+    differently.
+
+    Inside ``parallel.distributed.data_parallel(group)`` the statistics are
+    the global batch's: the sums ``(sum x, sum x^2, count)`` are all-reduced
+    over the group in one differentiable SUM, as XLA reduces them over the
+    data axis in JAX; one rank's all-reduce is a copy, so a group of one
+    computes what no group does, bit for bit."""
     xf = at_least_f32(x)
     dims = tuple(range(x.ndim - 1))
-    mean = xf.mean(dim=dims)
-    var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+    count = torch.full_like(xf[(0,) * (x.ndim - 1)], x.numel() // x.shape[-1])
+    sums = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count])
+    group = data_group()
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
+    n = sums[2].detach()
+    mean = sums[0] / n
+    var = (sums[1] / n - mean * mean).clamp_min(0.0)
     rstd = torch.rsqrt(var + eps)
     out = (xf - mean) * (rstd * at_least_f32(scale)) + at_least_f32(bias)
-    n = x.numel() // x.shape[-1]
-    return out.to(x.dtype), mean.detach(), var.detach() * (n / max(n - 1, 1))
+    return out.to(x.dtype), mean.detach(), var.detach() * (n / (n - 1).clamp_min(1))
 
 
 def linear(

@@ -24,16 +24,38 @@ from __future__ import annotations
 from typing import Callable, Iterable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..core.precision import at_least_f32
+from ..parallel.distributed import local_tensor
+
+
+def _norms(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient's L2 norm; a DTensor's over all its shards (its local
+    sum of squares all-reduced over each mesh dim it is sharded on)."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(g, DTensor) for g in grads):
+        return torch._foreach_norm(grads)
+    out = []
+    for g in grads:
+        if not isinstance(g, DTensor):
+            out.append(torch.linalg.vector_norm(g))
+            continue
+        sq = torch.linalg.vector_norm(at_least_f32(g.to_local())) ** 2
+        for dim, placement in enumerate(g.placements):
+            if placement.is_shard():
+                dist.all_reduce(sq, group=g.device_mesh.get_group(dim))
+        out.append(sq.sqrt())
+    return out
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
-    """optax ``clip_by_global_norm``, in place."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [at_least_f32(n) for n in torch._foreach_norm(grads)]))
+    """optax ``clip_by_global_norm``, in place (DTensor gradients too: the
+    norm is the whole tensors')."""
+    norm = torch.linalg.vector_norm(torch.stack([at_least_f32(n) for n in _norms(grads)]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([local_tensor(g) for g in grads], scale)
 
 
 class Optimizer:

@@ -121,6 +121,12 @@ import multimodal_deepfake_detection_tpu_torch.utils.torch_port
 import multimodal_deepfake_detection_tpu_torch.cli.import_torch
 import multimodal_deepfake_detection_tpu_torch.cli.preprocess_faces
 import multimodal_deepfake_detection_tpu_torch.cli.preprocess_audio
+import multimodal_deepfake_detection_tpu_torch.parallel
+import multimodal_deepfake_detection_tpu_torch.parallel.distributed
+import multimodal_deepfake_detection_tpu_torch.parallel.mesh
+import multimodal_deepfake_detection_tpu_torch.parallel.sharding
+import multimodal_deepfake_detection_tpu_torch.parallel.dryrun
+import multimodal_deepfake_detection_tpu_torch.core.orbax_ckpt
 import chip_smoke
 from multimodal_deepfake_detection_tpu_torch.cli.serve import Config, build_engine
 for engine in ("au_face", "au_patch"):  # the CLI engines, built on a bundle of the port's own
@@ -213,6 +219,30 @@ scorer = build_engine(Config(engine="au_patch", ckpt_path=sys.argv[1] + "/au_pat
 patches = np.zeros((1, 2, 2, 8, 8, 3), np.uint8)
 assert ArtifactScorer(export_au_patch(scorer, 2, 2, (8, 8), batch=1)).score(patches) == \
     scorer.score(patches)
+""" + _NO_JAX_LOADED
+
+
+# the multi-device modules at work, in a process of their own
+_BLOCKED_PARALLEL = _BLOCKER + """
+import numpy as np
+import torch
+from multimodal_deepfake_detection_tpu_torch.core.orbax_ckpt import OrbaxStateManager
+from multimodal_deepfake_detection_tpu_torch.models.heads import XceptionLSTMArcFace
+from multimodal_deepfake_detection_tpu_torch.models.serve import VisualScorer
+from multimodal_deepfake_detection_tpu_torch.parallel.sharding import param_placements
+from multimodal_deepfake_detection_tpu_torch.train import TrainState, ema_init, make_optimizer
+model = XceptionLSTMArcFace(4, generator=torch.Generator().manual_seed(0))
+assert sum(p.is_shard() for p in param_placements(model, 2).values()) > 100
+frames = np.zeros((3, 2, 32, 32, 3), np.uint8)
+scorers = [VisualScorer(model, model.arcface, compute_dtype=torch.float32, device="cpu",
+                        mesh=mesh) for mesh in (None, [torch.device("cpu")] * 3)]
+np.testing.assert_allclose(scorers[1].score(frames), scorers[0].score(frames), rtol=1e-5,
+                           atol=1e-6)
+head = torch.nn.Linear(4, 2)
+state = TrainState(3, head, make_optimizer(head.parameters(), "adam", 1e-3), ema_init(head))
+mgr = OrbaxStateManager(sys.argv[1] + "/ck")
+mgr.save(3, state)
+assert mgr.restore_latest(like=state).step == 3
 """ + _NO_JAX_LOADED
 
 
@@ -418,3 +448,10 @@ def test_kernel_error_raises_with_the_library_message(monkeypatch):
     with pytest.raises(RuntimeError, match="sepconv_unit kernel failed: boom"):
         fn(*args, **kw)
     assert fn.launches == 0 and fake.current == "the default device"
+
+
+def test_parallel_modules_work_without_jax(tmp_path):
+    """With JAX blocked: the flagship's tensor-parallel placements, a visual
+    engine sharded over a device list, and a checkpoint saved and restored
+    by ``core/orbax_ckpt.py``."""
+    _run_blocked(_BLOCKED_PARALLEL, tmp_path)

@@ -365,12 +365,26 @@ def test_serve_daemon_over_a_checkpoint_and_its_artifact(bundle, tmp_path):
 
 
 def test_serve_daemon_refuses_what_is_not_ported(bundle):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve_daemon.main(DAEMON_ARGS + ["--ckpt_path", bundle, "--use_mesh", "true"],
+    """What the JAX daemon refuses too: a data mesh over exported programs,
+    and a quant mode beside an artifact."""
+    with pytest.raises(ValueError, match="--use_mesh is not supported with --artifact"):
+        serve_daemon.main(DAEMON_ARGS + ["--artifact", bundle, "--use_mesh", "true"],
                           started=[])
     with pytest.raises(ValueError, match="baked at export time"):
         serve_daemon.main(DAEMON_ARGS + ["--artifact", bundle, "--quantize", "w8a8"],
                           started=[])
+
+
+def test_serve_daemon_use_mesh(bundle):
+    """``--use_mesh true`` on the one CPU scores unsharded: each clip as the
+    live scorer scores it alone."""
+    clips = _clips((3, 4), seed=4)
+    solo = VisualScorer.from_bundle(bundle, hidden_dim=HIDDEN, buckets=(4,), **F32)
+    want = [solo.score(c[None])[0] for c in clips]
+    got = _daemon_scores(DAEMON_ARGS + ["--ckpt_path", bundle, "--hidden_dim", str(HIDDEN),
+                                        "--buckets", "4", "--warmup", "3,32,32", "--use_mesh",
+                                        "true"], clips)
+    np.testing.assert_allclose(got, want, **SOLO_TOL)
 
 
 def test_jax_and_port_daemons_agree(model):

@@ -199,13 +199,22 @@ def test_native_loader_builds(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--ckpt_backend", "orbax"], NotImplementedError, "item 11"),
     (["--cache_features", "true", "--freeze_backbone", "false"], ValueError, "freeze_backbone"),
 ])
 def test_unported_flags_raise(argv, err, match):
     with pytest.raises(err, match=match):
         taudio_cli.build(taudio_cli.parse_config(taudio_cli.Config, argv + ["--device", "cpu"],
                                                  prog="train_audio"))
+
+
+def test_ckpt_backend_orbax_passes_the_flag_check():
+    """``--ckpt_backend orbax`` is ported (``tests/test_torch_orbax_ckpt.py``
+    trains and resumes with it); a backend the CLI has no path for raises."""
+    parse = lambda argv: taudio_cli.parse_config(taudio_cli.Config, argv,  # noqa: E731
+                                                 prog="train_audio")
+    taudio_cli.check_config(parse(["--ckpt_backend", "orbax"]))
+    with pytest.raises(ValueError, match="ckpt_backend"):
+        taudio_cli.check_config(parse(["--ckpt_backend", "tar"]))
 
 
 def test_missing_cuda_raises(monkeypatch):

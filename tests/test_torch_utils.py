@@ -130,7 +130,7 @@ def test_trainer_logger_flags_build_their_sinks(cli, name, tmp_path):
     config = parse_config(cli.Config, ["--jsonl_log", str(tmp_path / "m.jsonl"), "--tracker",
                                        f"tensorboard:{tmp_path / 'tb'}", "--device", "cpu"],
                           prog=name)
-    common.raise_unported(config, cli._NOT_PORTED)
+    cli.check_config(config)
     lg = common.epoch_logger(config, name)
     assert [type(x).__name__ for x in lg.loggers] == ["JsonlLogger", "TensorBoardLogger"]
     lg.log_epoch(_epoch_result())
